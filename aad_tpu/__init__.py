@@ -1,8 +1,8 @@
-"""aad_tpu — a TPU-native adaptive-differential (AAD) audio codec framework.
+"""aad_tpu — a GPU adaptive-differential (AAD) audio codec framework.
 
 A ground-up JAX/XLA/Pallas re-design of the AAD codec (bitstream-compatible
 with aikiriao/AAD): block-parallel decode, batched/sharded multi-stream
-processing, fused Pallas hot loops, and host-side WAV/CLI tooling.
+processing, a fused GPU decode kernel, and host-side WAV/CLI tooling.
 
 Public surface:
 
@@ -14,16 +14,6 @@ Public surface:
     EncodeConfig                      -> encoder parameter dataclass
     StreamingEncoder                  -> chunked encode with state carry
 """
-
-import os as _os
-
-if _os.environ.get("AAD_TPU_PLATFORM"):
-    # Opt-in platform pin (e.g. AAD_TPU_PLATFORM=cpu). Applied via config so
-    # it also wins where a site hook selects a platform programmatically
-    # after env-var processing.
-    import jax as _jax
-
-    _jax.config.update("jax_platforms", _os.environ["AAD_TPU_PLATFORM"])
 
 from .codec.result import (
     AadError,

@@ -2,8 +2,7 @@
 
 Block self-containedness means *every block of every stream* is an
 independent decode task, so a heterogeneous pile of files flattens into a
-few lane batches (BASELINE.json config: "batch block/channel-parallel
-decode of many .aad streams"). Streams are grouped by geometry — block
+few lane batches. Streams are grouped by geometry — block
 size, channel count, bit depth and MS flag are static pipeline parameters —
 and each group's block rows stack into ONE u32 wire-word batch for the
 wire32 device pipeline (codec.decoder._device_pipeline_words): no byte
@@ -33,20 +32,15 @@ def decode_batch(
 
     Returns a list of (header, pcm[C, N] int16) in input order.
     """
-    from .decoder import _bucket_blocks, _device_pipeline_words_jit
+    from .decoder import (
+        _bucket_blocks,
+        _device_pipeline_words_jit,
+        _lane_multiple,
+    )
 
-    if engine == "auto":
-        # Hybrid dispatch (the one-shot decode()'s policy): off-accelerator
-        # the AVX-512 native engine (~540 M samples/s/core) beats the scan
-        # engine by orders of magnitude; on TPU the fused kernel batch
-        # pipeline keeps the work.
-        from ..ops.decode import _on_tpu
-
-        if not _on_tpu():
-            from .. import native as _native
-
-            if _native.available():
-                engine = "native"
+    # "auto": the fused kernel on a GPU; elsewhere the native host engine,
+    # which beats the scan engine on a CPU by orders of magnitude.
+    engine = resolve_engine(engine, native="off_gpu")
     if engine == "native":
         # threaded GIL-free C calls: the CPU-host batch path
         from .. import native as _native
@@ -55,7 +49,6 @@ def decode_batch(
             (h, p.astype(np.int16))
             for h, p in _native.decode_batch(streams)
         ]
-    engine = resolve_engine(engine)
 
     parsed = []
     for data in streams:
@@ -100,13 +93,13 @@ def decode_batch(
 
         B_real = start
         B_pad = _bucket_blocks(B_real)
-        if engine == "fused":
-            lane_mult = max(1, 1024 // nch)
-            B_pad = -(-B_pad // lane_mult) * lane_mult
+        if engine != "scan":
+            mult = _lane_multiple(geo)
+            B_pad = -(-B_pad // mult) * mult
         # Ship only the real blocks' words; bucket padding materialises on
         # device and is dropped again before download (decoder._pad_blocks /
         # _trim_lanes) — no padded bytes cross the link in either direction.
-        from .decoder import _pad_blocks, _to_host_flat, _trim_lanes
+        from .decoder import _pad_blocks, _trim_lanes
 
         hdr_j = jnp.asarray(np.concatenate(hdr_rows, axis=0))
         data_j = jnp.asarray(np.concatenate(data_rows, axis=0))
@@ -128,7 +121,7 @@ def decode_batch(
             lanes = _trim_lanes(
                 lanes, channels=nch, nb_padded=B_pad, nb=B_real
             )
-        full = _to_host_flat(lanes).reshape(nch, B_real * nspb)
+        full = np.asarray(lanes).reshape(nch, B_real * nspb)
 
         for i, (off, nb) in zip(idxs, spans):
             h = parsed[i][0]

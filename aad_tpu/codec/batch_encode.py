@@ -21,7 +21,8 @@ from ..format.framing import BlockStates, assemble_stream, build_block_headers
 from ..format.geometry import num_blocks_for
 from ..format.header import encode_header
 from ..ops.encode import encode_stream_blocks, lr_to_ms
-from .encoder import EncodeConfig, resolve_encode_engine
+from ..ops.decode import resolve_engine
+from .encoder import EncodeConfig
 from .result import InvalidArgumentError
 
 
@@ -42,6 +43,9 @@ def encode_batch(
     block from a fresh state, blocks joining the lane axes).
     """
     config.validate()
+    # "auto": the scan engine on a GPU; elsewhere the native host engines,
+    # which beat the scan engine on a CPU by orders of magnitude.
+    engine = resolve_engine(engine, direction="encode", native="off_gpu")
     if engine == "native":
         # threaded GIL-free C calls: the CPU-host batch path
         from .. import native as _native
@@ -51,27 +55,6 @@ def encode_batch(
             chunk_blocks=parallel_chunk_blocks if parallel_blocks else 1,
             warm_passes=parallel_warm_passes if parallel_blocks else 0,
         )
-    if engine == "auto":
-        # Hybrid dispatch (the one-shot encode()'s policy): off-accelerator
-        # the native engines (~11.5 M/s/core sequential, ~120 M/s/core
-        # AVX-512 parallel mode) beat the scan engine by orders of
-        # magnitude; on TPU the fused kernels keep the work.
-        from ..ops.decode import _on_tpu
-
-        if not _on_tpu():
-            from .. import native as _native
-
-            if _native.available():
-                return _native.encode_batch(
-                    streams, config, parallel_blocks=parallel_blocks,
-                    chunk_blocks=(
-                        parallel_chunk_blocks if parallel_blocks else 1
-                    ),
-                    warm_passes=(
-                        parallel_warm_passes if parallel_blocks else 0
-                    ),
-                )
-    engine = resolve_encode_engine(engine)
     geo = config.geometry()
     nspb = geo.num_samples_per_block
     nch = config.num_channels
@@ -97,10 +80,8 @@ def encode_batch(
 
     if supports_wire32(geo) and not ms and not parallel_blocks:
         # Folded-lane sequential batch: stage (B, C*S, nspb) with lane
-        # l = c*S + s. A (B, S, C, nspb) entry pads its C=2 sublane axis
-        # to 8, so the device-side fold to kernel lanes materialises
-        # multi-pass relayouts of the whole sample array (see
-        # _encode_device_wire's folded branches).
+        # l = c*S + s, so each channel's wire words are a contiguous slice
+        # (see _encode_device_wire's folded branches).
         from .encoder import _encode_device_wire
 
         padded = np.zeros((nch, S, B * nspb), dtype=np.int32)
@@ -114,7 +95,7 @@ def encode_batch(
             _encode_device_wire(
                 jnp.asarray(blocks), jnp.asarray(valid_l), geo=geo,
                 num_trials=config.num_encode_trials, ms=False,
-                engine=engine, lanes_folded=True,
+                lanes_folded=True,
             )
         )  # (B, S, wpb)
         return [
@@ -142,7 +123,7 @@ def encode_batch(
         words = np.asarray(
             _encode_device_wire(
                 jnp.asarray(blocks), valid_j, geo=geo,
-                num_trials=config.num_encode_trials, ms=ms, engine=engine,
+                num_trials=config.num_encode_trials, ms=ms,
                 parallel=parallel_blocks,
                 chunk_blocks=parallel_chunk_blocks if parallel_blocks else 1,
                 warm_passes=parallel_warm_passes if parallel_blocks else 0,
@@ -166,7 +147,6 @@ def encode_batch(
         valid_j,
         config.bits_per_sample,
         config.num_encode_trials,
-        engine=engine,
     )
 
     si = np.asarray(headers.step_index)  # (B, S, C)

@@ -33,6 +33,7 @@ from ..format.geometry import (
     num_blocks_for,
 )
 from ..format.header import HeaderInfo, encode_header
+from ..ops.decode import resolve_engine
 from ..ops.encode import encode_stream_blocks, lr_to_ms
 from .result import InvalidArgumentError, InvalidFormatError
 
@@ -88,33 +89,29 @@ class EncodeConfig:
 
 
 @functools.partial(
-    jax.jit, static_argnames=("bits_per_sample", "num_trials", "ms", "engine")
+    jax.jit, static_argnames=("bits_per_sample", "num_trials", "ms")
 )
-def _encode_device(
-    blocks, valid, *, bits_per_sample: int, num_trials: int, ms: bool, engine: str
-):
+def _encode_device(blocks, valid, *, bits_per_sample: int, num_trials: int, ms: bool):
     """Device side: (B, C, nspb) padded PCM -> header fields + codes."""
     if ms:
         # LR->MS is per-sample and maps padding zeros to zeros, so applying it
         # to the whole padded signal equals the reference's per-block
         # transform (reference: src/aad_encoder.c:596-603, 496-512).
         blocks = lr_to_ms(blocks)
-    return encode_stream_blocks(
-        blocks, valid, bits_per_sample, num_trials, engine=engine
-    )
+    return encode_stream_blocks(blocks, valid, bits_per_sample, num_trials)
 
 
 @functools.partial(
     jax.jit,
     static_argnames=(
-        "geo", "num_trials", "ms", "engine", "parallel", "warm_passes",
-        "chunk_blocks", "lanes_folded",
+        "geo", "num_trials", "ms", "parallel", "warm_passes", "chunk_blocks",
+        "lanes_folded",
     ),
 )
 def _encode_device_wire(
     blocks, valid, *, geo: BlockGeometry, num_trials: int, ms: bool,
-    engine: str, parallel: bool = False, warm_passes: int = 0,
-    chunk_blocks: int = 1, lanes_folded: bool = False,
+    parallel: bool = False, warm_passes: int = 0, chunk_blocks: int = 1,
+    lanes_folded: bool = False,
 ):
     """Whole encode on device: padded PCM -> (B, wpb) u32 wire-word rows.
 
@@ -142,19 +139,15 @@ def _encode_device_wire(
     )
 
     if parallel and blocks.ndim == 2:
-        # Channel-major folded lanes (C*B, nspb): clean (8,128) tiling.
-        # The (B, C, nspb) entry form pads its C=2 sublane axis to 8, so
-        # the fold to kernel lanes materialises three full-array passes
-        # (~1.25 ms of a 4.5 ms parallel encode at 32.5 M samples);
-        # channel-major staging is also free on the host (the natural
-        # (C, N) -> (C*B, nspb) view) and makes every per-channel wire
-        # slice a contiguous leading-axis half.
+        # Channel-major folded lanes (C*B, nspb): the staging is free on
+        # the host (the natural (C, N) -> (C*B, nspb) view) and makes
+        # every per-channel wire slice a contiguous leading-axis half.
         assert not ms and chunk_blocks == 1 and warm_passes == 0
         C = geo.num_channels
         L = blocks.shape[0]
         B = L // C
         headers, kw = encode_blocks_parallel_flat(
-            blocks, valid, geo.bits_per_sample, num_trials, engine=engine
+            blocks, valid, geo.bits_per_sample, num_trials
         )
         hdr_u16 = build_header_words(
             headers.step_index.reshape(C, B),
@@ -171,16 +164,14 @@ def _encode_device_wire(
 
     if lanes_folded and not parallel:
         # Batch-sequential folded lanes: blocks (B, C*S, nspb) with lane
-        # l = c*S + s (channel-major over streams), valid (B, C*S). Same
-        # tiling rationale as the parallel flat branch — a (B, S, C, nspb)
-        # entry pads its C=2 sublane axis to 8.
+        # l = c*S + s (channel-major over streams), valid (B, C*S), so
+        # each channel's wire words are a contiguous slice.
         assert not ms and blocks.ndim == 3
         C = geo.num_channels
         B, L, _ = blocks.shape
         S = L // C
         headers, kw, _ = encode_stream_words(
-            blocks, valid, geo.bits_per_sample, num_trials,
-            engine=engine, need_carry=False,
+            blocks, valid, geo.bits_per_sample, num_trials, need_carry=False,
         )
 
         def unfold(x):  # (B, L[, 4]) -> (B, S, C[, 4]); header-scale tiny
@@ -202,89 +193,18 @@ def _encode_device_wire(
         blocks = lr_to_ms(blocks)
     if parallel:
         headers, kw = encode_blocks_parallel(
-            blocks, valid, geo.bits_per_sample, num_trials, engine=engine,
+            blocks, valid, geo.bits_per_sample, num_trials,
             chunk_blocks=chunk_blocks, warm_passes=warm_passes,
         )
     else:
         headers, kw, _ = encode_stream_words(
-            blocks, valid, geo.bits_per_sample, num_trials, engine=engine
+            blocks, valid, geo.bits_per_sample, num_trials
         )
     hdr_u16 = build_header_words(
         headers.step_index, headers.shift, headers.weight, headers.history, geo
     )
     data_words = kernel_words_to_wire(kw, geo)
     return assemble_wire_words(hdr_u16, data_words, geo)
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("geo", "num_trials", "ms", "engine", "chunk_blocks"),
-)
-def _encode_chunk_wire(
-    pcm_flat, valid, state, prev, blocks_before, *, geo: BlockGeometry,
-    num_trials: int, ms: bool, engine: str, chunk_blocks: int,
-):
-    """One transfer-overlap encode chunk: natural-layout PCM in, wire rows
-    + predictor carry out.
-
-    ``pcm_flat`` is (C, chunk_blocks * nspb) int32 — the user buffer's own
-    layout, so the host ships the chunk without any relayout copy; the
-    kernel's (B, C, nspb) layout materialises on device, where the
-    transpose is noise next to the encode chain (the host-side
-    ``_pad_to_blocks`` staging measured 45 ms of the 596 ms one-shot
-    wall — benchmarks/probe_encode_wrapper.py). The carry keeps chunked
-    output byte-identical to the one-shot encode (the same state chain
-    the streaming API pins, reference: src/aad_encoder.c:814-891).
-    """
-    from ..ops.encode import encode_stream_words
-    from ..ops.wire32 import (
-        assemble_wire_words,
-        build_header_words,
-        kernel_words_to_wire,
-    )
-
-    C = geo.num_channels
-    nspb = geo.num_samples_per_block
-    blocks = jnp.swapaxes(pcm_flat.reshape(C, chunk_blocks, nspb), 0, 1)
-    if ms:
-        blocks = lr_to_ms(blocks)
-    headers, kw, carry = encode_stream_words(
-        blocks, valid, geo.bits_per_sample, num_trials,
-        carry=(state, prev), blocks_before=blocks_before, engine=engine,
-    )
-    hdr_u16 = build_header_words(
-        headers.step_index, headers.shift, headers.weight, headers.history,
-        geo,
-    )
-    data_words = kernel_words_to_wire(kw, geo)
-    return assemble_wire_words(hdr_u16, data_words, geo), carry
-
-
-# Transfer-overlap chunking for the sequential device encode: blocks per
-# chunk (one compiled executable serves every stream length; the ragged
-# tail chunk zero-pads host-side) and the stream size below which the
-# one-shot path is used instead. Swept on hardware (DESIGN §3, round 5,
-# bench workload): 1024→5.5, 512→7.5, 256→8.1, 128→8.7, 64→9.0,
-# 32→8.0 M samples/s — the wall approaches kernel + first-chunk ramp as
-# chunks shrink until per-chunk Python/staging glue (~1.5 ms a chunk)
-# pushes back; 64 is the knee.
-_OVERLAP_CHUNK_BLOCKS = 64
-_OVERLAP_MIN_BLOCKS = 128
-
-
-def resolve_encode_engine(engine: str = "auto") -> str:
-    """Resolve/warm the encode engine (Pallas on TPU, lax.scan elsewhere)."""
-    if engine == "auto":
-        try:
-            on_tpu = jax.devices()[0].platform == "tpu"
-        except Exception:  # pragma: no cover
-            on_tpu = False
-        engine = "pallas" if on_tpu else "scan"
-    if engine == "pallas":
-        from ..ops.pallas_decode import warm_fused_engine
-
-        warm_fused_engine()
-    return engine
 
 
 def _pad_to_lanes_flat(
@@ -334,7 +254,7 @@ class Encoder:
     block is encoded from a fresh processor state (the reference's
     first-block semantics, trial search included), which removes the
     sequential cross-block chain — all blocks of the stream encode
-    concurrently on the TPU's vector lanes. The output is a fully valid
+    concurrently across the device's lanes. The output is a fully valid
     stream for any conforming decoder (each block header carries the
     complete decoder state, reference: src/aad_decoder.c:363-380) and is
     byte-identical to concatenating independent single-block encodes; the
@@ -371,7 +291,7 @@ class Encoder:
         return cls(
             config=config,
             geometry=config.geometry(),
-            engine=resolve_encode_engine(engine),
+            engine=resolve_engine(engine, direction="encode"),
             parallel_blocks=parallel_blocks,
             parallel_chunk_blocks=parallel_chunk_blocks,
             parallel_warm_passes=parallel_warm_passes,
@@ -395,9 +315,6 @@ class Encoder:
         header = self.config.header_for(num_samples)
         file_header = encode_header(header)
 
-        engine = (
-            self.engine if self.engine != "auto" else resolve_encode_engine()
-        )
         ms = cfg.ch_process_method == CH_PROCESS_MS
 
         from ..ops.wire32 import supports_wire32, wire_words_to_payload
@@ -411,9 +328,8 @@ class Encoder:
         )
         if flat_lanes:
             # Channel-major folded staging: (C, N) pcm -> (C*Bp, nspb) is a
-            # single zero-padded buffer + free reshape (no swapaxes copy),
-            # and the 2-D device entry tiles cleanly — see the flat branch
-            # of _encode_device_wire for the layout reasoning. Bucket the
+            # single zero-padded buffer + free reshape (no swapaxes copy);
+            # see the flat branch of _encode_device_wire. Bucket the
             # block count so distinct stream lengths reuse compiled shapes.
             from .decoder import _bucket_blocks
 
@@ -426,25 +342,12 @@ class Encoder:
                 geo=self.geometry,
                 num_trials=cfg.num_encode_trials,
                 ms=False,
-                engine=engine,
                 parallel=True,
             )
             payload = wire_words_to_payload(
                 np.asarray(words), self.geometry, num_samples
             )
             return file_header + payload.tobytes()
-
-        if (
-            not self.parallel_blocks
-            and engine == "pallas"
-            and supports_wire32(self.geometry)
-            and num_blocks_for(
-                num_samples, self.geometry.num_samples_per_block
-            ) >= _OVERLAP_MIN_BLOCKS
-        ):
-            return file_header + self._encode_sequential_overlap(
-                pcm, num_samples, ms, engine
-            )
 
         blocks, valid, _ = _pad_to_blocks(pcm, self.geometry)
         if supports_wire32(self.geometry):
@@ -471,7 +374,6 @@ class Encoder:
                 geo=self.geometry,
                 num_trials=cfg.num_encode_trials,
                 ms=ms,
-                engine=engine,
                 parallel=self.parallel_blocks,
                 warm_passes=(
                     self.parallel_warm_passes if self.parallel_blocks else 0
@@ -491,7 +393,6 @@ class Encoder:
             bits_per_sample=cfg.bits_per_sample,
             num_trials=cfg.num_encode_trials,
             ms=ms,
-            engine=engine,
         )
 
         states = BlockStates(
@@ -506,76 +407,6 @@ class Encoder:
         )
         return file_header + payload.tobytes()
 
-    def _encode_sequential_overlap(
-        self, pcm: np.ndarray, num_samples: int, ms: bool, engine: str
-    ) -> bytes:
-        """Chunked transfer-overlap sequential encode (device engines).
-
-        The encode mirror of the decoder's round-4 overlap schedule
-        (decoder._decode_prefix_overlap): the stream is encoded in fixed
-        chunks of ``_OVERLAP_CHUNK_BLOCKS`` blocks whose dispatches are
-        never blocked on, so chunk i+1's PCM uploads while chunk i's
-        kernel runs and chunk i's wire words stream back
-        (``copy_to_host_async``). The predictor carry chains the chunks,
-        so the bytes are identical to the one-shot encode — the same
-        exactness contract the streaming API pins (reference trial/state
-        chain: src/aad_encoder.c:470-562, :814-891). Measured on the
-        bench workload the one-shot wall is 45 ms host relayout + 148 ms
-        upload + 267 ms kernel + 27 ms dispatch (probe_encode_wrapper);
-        this path hides everything but the kernel and one chunk's ramp.
-        """
-        from ..ops.encode import CodecState
-        from ..ops.wire32 import wire_words_to_payload
-
-        geo = self.geometry
-        cfg = self.config
-        C = geo.num_channels
-        nspb = geo.num_samples_per_block
-        nblocks = num_blocks_for(num_samples, nspb)
-        cb = _OVERLAP_CHUNK_BLOCKS
-        n_chunks = -(-nblocks // cb)
-        span = cb * nspb
-
-        state = CodecState.zeros((C,))
-        prev = jnp.zeros((C, nspb), jnp.int32)
-        parts = []
-        for i in range(n_chunks):
-            b0 = i * cb
-            s0 = b0 * nspb
-            sl = pcm[:, s0 : s0 + span]
-            if sl.shape[1] < span:  # ragged tail chunk: zero-pad host-side
-                pad = np.zeros((C, span), dtype=np.int32)
-                pad[:, : sl.shape[1]] = sl
-                sl = pad
-            valid = np.minimum(
-                np.full(cb, nspb, dtype=np.int64),
-                np.maximum(
-                    num_samples - (b0 + np.arange(cb, dtype=np.int64)) * nspb,
-                    0,
-                ),
-            ).astype(np.int32)
-            words, (state, prev) = _encode_chunk_wire(
-                jnp.asarray(sl),
-                jnp.asarray(valid),
-                state,
-                prev,
-                jnp.int32(b0),
-                geo=geo,
-                num_trials=cfg.num_encode_trials,
-                ms=ms,
-                engine=engine,
-                chunk_blocks=cb,
-            )
-            copy_async = getattr(words, "copy_to_host_async", None)
-            if copy_async is not None:
-                copy_async()
-            parts.append((words, min(cb, nblocks - b0)))
-        rows = np.concatenate(
-            [np.asarray(w)[:real] for w, real in parts]
-        )
-        payload = wire_words_to_payload(rows, geo, num_samples)
-        return payload.tobytes()
-
 
 def encode(
     pcm: np.ndarray,
@@ -587,52 +418,32 @@ def encode(
 ) -> bytes:
     """One-shot encode; see :class:`Encoder`.
 
-    ``engine="auto"`` prefers the native engine: a *sequential* single
-    stream is latency-bound on the TPU's VPU (the encode recurrence is a
-    ~72-cycle serial dependent chain per sample — docs/DESIGN.md §3), where
-    the native C++ engine measures ~11.5 M samples/s vs the C reference's
-    6.3 M. The TPU pays off through the batch/streaming APIs
-    (codec.batch_encode, parallel.sharded) and through
-    ``parallel_blocks=True`` — the block-independent mode, which encodes
-    all blocks of even a single stream concurrently on the TPU (see
-    :class:`Encoder`). Off-accelerator, parallel mode routes to the
-    AVX-512 block-parallel host engine (native/aadx.cc, byte-identical
-    for every chunk/warm knob setting). Pass "scan"/"pallas"/"native" to
+    ``engine="auto"`` for a *sequential* single stream prefers the native
+    engine: the encode recurrence is a serial dependent chain per sample
+    (docs/DESIGN.md §3), so one stream gives a device no parallelism to
+    use (whether the GPU should take it over is for the benchmark to
+    show). With ``parallel_blocks=True`` — the block-independent mode,
+    which encodes all blocks of even a single stream concurrently (see
+    :class:`Encoder`) — "auto" runs the scan engine on a GPU and the
+    block-parallel native host engine (native/aadx.cc, byte-identical for
+    every chunk/warm knob setting) elsewhere. Pass "scan" or "native" to
     override.
     """
+    engine = resolve_engine(
+        engine, direction="encode",
+        native="off_gpu" if parallel_blocks else "always",
+    )
     if engine == "native":
         from .. import native
 
+        config.validate()
         if parallel_blocks:
-            config.validate()
             return native.encode_parallel(
                 np.asarray(pcm, dtype=np.int32), config,
                 chunk_blocks=parallel_chunk_blocks,
                 warm_passes=parallel_warm_passes,
             )
         return native.encode(np.asarray(pcm, dtype=np.int32), config)
-    if engine == "auto" and not parallel_blocks:
-        from .. import native
-
-        if native.available():
-            config.validate()
-            return native.encode(np.asarray(pcm, dtype=np.int32), config)
-    if engine == "auto" and parallel_blocks:
-        # Off-accelerator, the AVX-512 block-parallel host engine (~160 M
-        # samples/s) beats the scan engine by orders of magnitude; on TPU
-        # the fused kernel path (~10 G samples/s) keeps the work.
-        from ..ops.decode import _on_tpu
-
-        if not _on_tpu():
-            from .. import native
-
-            if native.available():
-                config.validate()
-                return native.encode_parallel(
-                    np.asarray(pcm, dtype=np.int32), config,
-                    chunk_blocks=parallel_chunk_blocks,
-                    warm_passes=parallel_warm_passes,
-                )
     return Encoder.from_config(
         config, engine=engine, parallel_blocks=parallel_blocks,
         parallel_chunk_blocks=parallel_chunk_blocks,

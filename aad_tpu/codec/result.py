@@ -2,7 +2,7 @@
 
 The reference API is result-typed: every entry point validates its inputs
 before any side effect and returns an ``AADApiResult`` (reference:
-src/aad.h:25-33). The TPU build keeps the same taxonomy but maps it onto
+src/aad.h:25-33). This framework keeps the same taxonomy but maps it onto
 Python idiom: an ``ApiResult`` enum for code that wants codes, and an
 ``AadError`` exception carrying the enum for code that wants exceptions.
 """

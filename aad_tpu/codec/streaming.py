@@ -45,18 +45,19 @@ class StreamingEncoder:
         self.config = config
         self.geometry = config.geometry()
         # Hybrid dispatch, mirroring the one-shot encode(): a streaming
-        # stream is a sequential chain, which the native host engine wins
-        # (docs/DESIGN.md §3) — the JAX engines serve explicit overrides.
-        from .. import native
+        # stream is a sequential chain, which "auto" serves from the native
+        # host engine — the JAX engines serve explicit overrides.
+        from ..ops.decode import resolve_engine
 
-        self._native = native.resolve(engine)
-        if self._native is None:
-            from .encoder import resolve_encode_engine
+        self.engine = resolve_engine(
+            engine, direction="encode", native="always"
+        )
+        self._native = None
+        if self.engine == "native":
+            from .. import native
 
-            self.engine = resolve_encode_engine(engine)
-        else:
-            self.engine = "native"
-            self._nstate, self._nprev = self._native.stream_state(config)
+            self._native = native
+            self._nstate, self._nprev = native.stream_state(config)
         self.total_samples = total_samples
         self._buffer = np.empty((config.num_channels, 0), dtype=np.int32)
         self._carry = None
@@ -145,7 +146,6 @@ class StreamingEncoder:
             self.config.num_encode_trials,
             carry=self._carry,
             blocks_before=self._blocks_done,
-            engine=self.engine,
         )
         self._carry = carry
         self._blocks_done += nblocks
@@ -218,13 +218,17 @@ class StreamingDecoder:
     """
 
     def __init__(self, engine: str = "auto"):
-        self._engine = engine
         # Hybrid dispatch, mirroring the one-shot decode(): per-push decodes
-        # are transfer/dispatch-bound on an accelerator, so auto routes to
-        # the native host engine; explicit JAX engines override.
-        from .. import native
+        # pay a dispatch and two transfers on an accelerator, so auto routes
+        # to the native host engine; explicit JAX engines override.
+        from ..ops.decode import resolve_engine
 
-        self._native = native.resolve(engine)
+        self._engine = resolve_engine(engine, native="always")
+        self._native = None
+        if self._engine == "native":
+            from .. import native
+
+            self._native = native
         self._buffer = _ByteFIFO()
         self._header = None
         self._geometry = None
@@ -306,9 +310,11 @@ class StreamingDecoder:
         # device; see codec.decoder._device_pipeline_words).
         n_real = len(block_rows)
         n_pad = _bucket_blocks(n_real)
-        if dec.engine == "fused":
-            lane_mult = max(1, 1024 // geo.num_channels)
-            n_pad = -(-n_pad // lane_mult) * lane_mult
+        if dec.engine != "scan":
+            from .decoder import _lane_multiple
+
+            mult = _lane_multiple(geo)
+            n_pad = -(-n_pad // mult) * mult
         hdr_w, data_w = block_rows_to_words_split(
             np.stack(block_rows), geo, n_pad
         )
@@ -322,9 +328,7 @@ class StreamingDecoder:
             ms=h.ch_process_method == CH_PROCESS_MS,
             engine=dec.engine,
         )
-        from .decoder import _to_host_flat
-
-        full = _to_host_flat(lanes).reshape(geo.num_channels, n_pad * nspb)
+        full = np.asarray(lanes).reshape(geo.num_channels, n_pad * nspb)
         out = [
             full[:, b * nspb : b * nspb + v] for b, v in enumerate(valids)
         ]

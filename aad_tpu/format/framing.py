@@ -1,6 +1,6 @@
 """Stream framing: .aad payload bytes <-> dense per-block tensors.
 
-This is the boundary the TPU design revolves around. Every block header
+This is the boundary the device design revolves around. Every block header
 carries the complete decoder state (reference: src/aad_decoder.c:363-380), so
 a stream factors into a *dense batch of independent block-decode tasks*:
 

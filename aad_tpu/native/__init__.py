@@ -152,23 +152,6 @@ def available() -> bool:
     return _load() is not None
 
 
-def resolve(engine: str):
-    """The hybrid-dispatch gate, shared by every auto-routing call site.
-
-    Returns this module when ``engine`` is "auto"/"native" and the library
-    loads, None when a JAX engine should serve instead, and raises for an
-    explicit ``engine="native"`` that cannot be satisfied.
-    """
-    if engine in ("auto", "native"):
-        if available():
-            import sys
-
-            return sys.modules[__name__]
-        if engine == "native":
-            raise RuntimeError("native codec unavailable")
-    return None
-
-
 def _as_header(info: _AadxInfo) -> HeaderInfo:
     return HeaderInfo(
         format_version=info.format_version,
@@ -436,9 +419,8 @@ def encode_batch(
     The C API is stateless per call (all work memory is local to
     aadx_encode — aadx.cc keeps no globals), and ctypes drops the GIL for
     the duration of every foreign call, so a plain thread pool scales the
-    ~11 M samples/s single-stream engine with host core count (the bench
-    host has a single core, so no speedup is observable there — the pool
-    sizes itself to os.cpu_count()). This is the CPU-host counterpart of
+    single-stream engine with host core count (the pool sizes itself to
+    os.cpu_count()). This is the CPU-host counterpart of
     the device batch pipeline; results are byte-identical to per-stream
     native encodes (and therefore to the reference binary). With
     ``parallel_blocks`` each stream uses the block-independent mode

@@ -146,11 +146,11 @@ struct Lms {
   // Returns the code; quantisation error (the reconstructed diff) through
   // *qdiff for the trial search.
   // The quantiser keeps the plain idiv: 32-bit division with these small
-  // operands is variable-latency fast (~10 cycles) on modern cores, so it
-  // beats both a Granlund-Montgomery magic multiply (byte-exact but ~11%
-  // slower: per-stepsize magic-table loads) and the SIMD engines'
-  // binary-search threshold form (byte-exact but 11.3 -> 7.5 M samples/s
-  // at bps=4: the dependent compare levels are longer than the divide).
+  // operands is variable-latency fast on modern cores, so it beats both a
+  // Granlund-Montgomery magic multiply (byte-exact, but per-stepsize
+  // magic-table loads) and the SIMD engines' binary-search threshold form
+  // (byte-exact, but the dependent compare levels are longer than the
+  // divide).
   uint32_t encode(int32_t sample, uint32_t bps, int32_t* qdiff) {
     const uint32_t sign = 1u << (bps - 1);
     const uint32_t absmask = sign - 1;
@@ -405,7 +405,7 @@ void measure_pair(Lms* p, const int32_t* c, uint32_t n, int64_t* psse,
 // Decode is embarrassingly parallel across blocks: every block header carries
 // the complete predictor state (reference: src/aad_decoder.c:301-352 re-seeds
 // per block), so (block, channel) pairs are independent lanes — the same lane
-// concept as the TPU kernels, mapped onto AVX-512's 16 int32 lanes. Two
+// concept as the GPU decode kernel, mapped onto AVX-512's 16 int32 lanes. Two
 // 16-lane groups run interleaved so the per-sample dependent chain of one
 // group hides the other's gather/ALU latency. All arithmetic is int32
 // wraparound (vpmulld/vpsrad match -fwrapv scalar semantics bit-for-bit).
@@ -596,8 +596,8 @@ void decode_chunk_simd(const uint8_t* data, size_t off0, uint32_t b0,
     doff[grp] = _mm512_load_si512(dbuf[grp]);
   }
 
-  // Output staging: per-sample vpscatterdd measured ~25% of the decode
-  // loop on this chain, so samples buffer 16-deep time-major in L1 and
+  // Output staging: per-sample vpscatterdd is costly on this chain, so
+  // samples buffer 16-deep time-major in L1 and
   // flush through the in-register 16x16 transpose as one contiguous
   // 64-byte store per lane (each lane's output is sequential).
   alignas(64) int32_t tbuf[G][16][kLanes];
@@ -761,8 +761,8 @@ uint32_t run_simd_decode(const uint8_t* data, size_t size,
 // (block, channel) lanes are independent for the WHOLE trial search + emit —
 // the same lane map as the SIMD decoder. The quantiser uses the binary-search
 // formulation instead of idiv (no vector integer division exists); it agrees
-// with the reference division for every reachable input — the equivalence the
-// Pallas engines already pin (ops/pallas_encode_fused.py, docs/DESIGN.md §3).
+// with the reference division for every reachable input (docs/DESIGN.md §3;
+// native == scan is pinned by tests/test_parallel_encode.py).
 
 #pragma GCC push_options
 #pragma GCC target("avx512f")
@@ -793,7 +793,7 @@ inline void enc_step16(LaneState& s, __m512i x, const int32_t* steptab,
   const __mmask16 neg = _mm512_cmp_epi32_mask(diff, zero, _MM_CMPINT_LT);
   const __m512i scaled =
       _mm512_slli_epi32(_mm512_abs_epi32(diff), BPS - 2);
-  // binary-search quantiser (exactly ops/pallas_encode_fused.py's R>=2 form)
+  // binary-search quantiser (docs/DESIGN.md §3)
   __m512i mc = _mm512_maskz_set1_epi32(
       _mm512_cmp_epi32_mask(scaled, _mm512_slli_epi32(st, BPS - 2),
                             _MM_CMPINT_NLT),

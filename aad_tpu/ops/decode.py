@@ -12,9 +12,9 @@ Decode of one block factors into two phases (design: SURVEY.md §7.3):
   block x channel batch. Throughput comes from the batch axis: every block
   decodes independently (reference: src/aad_decoder.c:363-380).
 
-Two interchangeable engines are provided:
-  * ``decode_blocks_scan``  — lax.scan reference engine (always available)
-  * ``decode_blocks``       — dispatches to the Pallas kernel when profitable
+Two interchangeable engines are provided, chosen by :func:`resolve_engine`:
+  * ``scan``  — phase A and phase B in plain XLA (the portable reference)
+  * ``fused`` — one GPU kernel for both phases (ops.pallas_decode)
 
 Both are bit-exact with the reference decoder (reference:
 src/aad_decoder.c:269-318, 321-475).
@@ -90,15 +90,14 @@ def decode_blocks(
     bits_per_sample: int,
     engine: str = "auto",
 ) -> Array:
-    """See :func:`_decode_blocks_impl`; resolves/warms the engine first."""
-    engine = resolve_engine(engine)
+    """See :func:`_decode_blocks_impl`; resolves the engine first."""
     return _decode_blocks_impl(
         codes,
         step_index,
         weight,
         history,
         bits_per_sample=bits_per_sample,
-        engine=engine,
+        engine=resolve_engine(engine),
     )
 
 
@@ -119,8 +118,9 @@ def _decode_blocks_impl(
       step_index: (...) int32 initial Q4 step index per lane.
       weight:     (..., 4) int32 initial weights per lane.
       history:    (..., 4) int32 initial history per lane (newest first).
-      engine: "fused" (single Pallas kernel), "pallas" (XLA phase A +
-        Pallas LMS), or "scan" (pure XLA; the portable reference engine).
+      engine: "fused" (the GPU kernel, ops.pallas_decode),
+        "fused_interpret" (the same kernel interpreted, for CPU tests) or
+        "scan" (pure XLA; the portable reference engine).
     Returns:
       (..., T + FILTER_ORDER) int32 samples: the four header samples
       (history reversed, reference: src/aad_decoder.c:386-391) followed by the
@@ -131,46 +131,72 @@ def _decode_blocks_impl(
     # the reference — pin to the table maximum, matching every parse
     # point (format/framing.py, ops/wire32.py, native/aadx.cc).
     step_index = cs.clip(step_index, 0, STEP_INDEX_MAX)
-    if engine == "fused":
-        from .pallas_decode import decode_fused
+    if engine in ("fused", "fused_interpret"):
+        from .pallas_decode import decode_codes
 
-        body = decode_fused(
-            codes, step_index, history, weight, bits_per_sample=bits_per_sample
+        return decode_codes(
+            codes, step_index, history, weight,
+            bits_per_sample=bits_per_sample,
+            interpret=engine == "fused_interpret",
         )
-    elif engine == "pallas":
-        from .pallas_lms import lms_pallas
-
-        qdiffs = compute_qdiffs(codes, step_index, bits_per_sample)
-        body = lms_pallas(qdiffs, history, weight)
-    elif engine == "scan":
-        qdiffs = compute_qdiffs(codes, step_index, bits_per_sample)
-        body = lms_scan(qdiffs, history, weight)
-    else:
+    if engine != "scan":
         raise ValueError(f"unknown decode engine: {engine}")
+    qdiffs = compute_qdiffs(codes, step_index, bits_per_sample)
+    body = lms_scan(qdiffs, history, weight)
     head = history[..., ::-1]
     return jnp.concatenate([head, body], axis=-1)
 
 
-def _on_tpu() -> bool:
-    try:
-        return jax.devices()[0].platform == "tpu"
-    except Exception:  # pragma: no cover
-        return False
+def resolve_engine(
+    engine: str = "auto", *, direction: str = "decode", native: str = "never"
+) -> str:
+    """The one place an engine is chosen: (platform, API, engine) -> engine.
 
+    ``direction`` is "decode" (engines "fused", "scan") or "encode"
+    ("scan"). ``native`` says when the API may serve "auto" from the
+    native host engine (aad_tpu.native) — "never" (JAX pipelines:
+    Decoder, Encoder, the sharded APIs), "off_gpu" (the batch and
+    parallel-mode APIs: the device on a GPU, the host elsewhere) or
+    "always" (the one-shot decode() and sequential encode(), whose
+    latency a host engine serves best). APIs that accept
+    ``engine="native"`` pass a ``native`` other than "never".
 
-def resolve_engine(engine: str = "auto") -> str:
-    """Resolve "auto" to a concrete engine and warm it up.
-
-    Must be called eagerly (outside jit) before jitted pipelines use the
-    fused engine — the fused kernel's correction-set probe is a real device
-    execution (see ops.pallas_decode.stepsize_corrections).
+    On a GPU "auto" picks the device engines: the fused kernel for
+    decode, the scan engine for encode. Elsewhere it picks the native
+    engine where allowed and available, else "scan". The fused kernel
+    is refused off the GPU, and its interpreted form
+    ("fused_interpret", for CPU tests) on the GPU. Unknown names raise.
     """
+    device = {"decode": ("fused", "scan"), "encode": ("scan",)}[direction]
+    allowed = set(device)
+    if direction == "decode":
+        allowed.add("fused_interpret")
+    if native != "never":
+        allowed.add("native")
+    on_gpu = jax.default_backend() == "gpu"
     if engine == "auto":
-        engine = "fused" if _on_tpu() else "scan"
-    if engine == "fused":
-        from .pallas_decode import warm_fused_engine
+        if native == "always" or (native == "off_gpu" and not on_gpu):
+            from .. import native as _native
 
-        warm_fused_engine()
+            if _native.available():
+                return "native"
+        return device[0] if on_gpu else "scan"
+    if engine not in allowed:
+        raise ValueError(
+            f"unknown {direction} engine {engine!r}; expected one of "
+            f"{sorted(allowed | {'auto'})}"
+        )
+    if engine == "fused" and not on_gpu:
+        raise ValueError("engine='fused' needs a GPU; use 'scan' (or "
+                         "'fused_interpret' in tests)")
+    if engine == "fused_interpret" and on_gpu:
+        raise ValueError("engine='fused_interpret' is for CPU tests; "
+                         "use 'fused' on the GPU")
+    if engine == "native":
+        from .. import native as _native
+
+        if not _native.available():
+            raise RuntimeError("native codec unavailable")
     return engine
 
 

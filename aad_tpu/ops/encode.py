@@ -2,7 +2,7 @@
 
 Encode cannot block-parallelise bit-exactly — processor state chains across
 blocks and the trial search re-reads the previous block (reference:
-src/aad_encoder.c:870, 502-512). The TPU design therefore:
+src/aad_encoder.c:870, 502-512). The design therefore:
 
 * scans over blocks sequentially (``lax.scan`` carrying the per-channel
   :class:`CodecState`),
@@ -72,16 +72,13 @@ def _seed_from_block(state: CodecState, block: Array) -> CodecState:
 
 
 def _encode_span(
-    state: CodecState, block: Array, valid: Array, bits_per_sample: int, engine: str
+    state: CodecState, block: Array, valid: Array, bits_per_sample: int
 ):
     """Run the encode recurrence over a block's sample slots with lax.scan,
-    freezing state/sse at ``valid`` samples. (The Pallas engine has its own
-    whole-stream driver, :func:`encode_stream_blocks_pallas`, which keeps
-    samples in the kernel tile layout across all trial passes.)
+    freezing state/sse at ``valid`` samples.
 
     Returns (state', codes (..., T), sse limbs).
     """
-    del engine  # only the scan engine flows through here
     lane_shape = state.step_index.shape
     samples_t = jnp.moveaxis(block[..., FILTER_ORDER:], -1, 0)  # (T, ...)
     T = samples_t.shape[0]
@@ -106,7 +103,6 @@ def measure_block(
     block: Array,
     valid: Array,
     bits_per_sample: int,
-    engine: str = "scan",
 ) -> tuple[CodecState, tuple[Array, Array]]:
     """Trial-encode a block and accumulate squared quantisation error.
 
@@ -125,9 +121,7 @@ def measure_block(
     """
     lane_shape = state.step_index.shape
     seeded = _seed_from_block(state, block)
-    final_state, _codes, sse = _encode_span(
-        seeded, block, valid, bits_per_sample, engine
-    )
+    final_state, _codes, sse = _encode_span(seeded, block, valid, bits_per_sample)
     skip = jnp.broadcast_to(valid < FILTER_ORDER, lane_shape)
     out_state = _select_state(skip, state, final_state)
     out_sse = cs.u64_select(skip, cs.u64_zero(lane_shape), sse)
@@ -142,7 +136,6 @@ def search_best_state(
     valid: Array,
     bits_per_sample: int,
     num_trials: int,
-    engine: str = "scan",
     warm_on_prev: bool = True,
 ) -> CodecState:
     """Trial search for the lowest-RMSE starting state, per channel.
@@ -159,7 +152,7 @@ def search_best_state(
     first-block behaviour (src/aad_encoder.c:503).
     """
     # Baseline: the incoming state measured as-is (state change discarded).
-    _, min_sse = measure_block(state, cur_block, valid, bits_per_sample, engine)
+    _, min_sse = measure_block(state, cur_block, valid, bits_per_sample)
     best = state
     tmp = state
 
@@ -167,14 +160,12 @@ def search_best_state(
         if warm_on_prev:
             # Warm up on the previous block when one exists (full-length).
             nspb_full = jnp.asarray(cur_block.shape[-1], dtype=jnp.int32)
-            warmed, _ = measure_block(
-                tmp, prev_block, nspb_full, bits_per_sample, engine
-            )
+            warmed, _ = measure_block(tmp, prev_block, nspb_full, bits_per_sample)
             tmp = _select_state(
                 jnp.broadcast_to(has_prev, tmp.step_index.shape), warmed, tmp
             )
         candidate = tmp
-        tmp, sse = measure_block(tmp, cur_block, valid, bits_per_sample, engine)
+        tmp, sse = measure_block(tmp, cur_block, valid, bits_per_sample)
         better = cs.sse_better(sse, min_sse)
         best = _select_state(better, candidate, best)
         min_sse = cs.u64_select(better, sse, min_sse)
@@ -200,7 +191,7 @@ def round_weights(state: CodecState) -> tuple[CodecState, Array]:
 
 
 def encode_block_codes(
-    state: CodecState, block: Array, bits_per_sample: int, engine: str = "scan"
+    state: CodecState, block: Array, bits_per_sample: int
 ) -> tuple[CodecState, Array]:
     """Encode one (zero-padded) block's data section.
 
@@ -216,9 +207,7 @@ def encode_block_codes(
       (state', codes (..., T) int32).
     """
     nspb = jnp.asarray(block.shape[-1], dtype=jnp.int32)
-    final_state, codes, _sse = _encode_span(
-        state, block, nspb, bits_per_sample, engine
-    )
+    final_state, codes, _sse = _encode_span(state, block, nspb, bits_per_sample)
     return final_state, codes
 
 
@@ -230,7 +219,6 @@ def encode_stream_blocks(
     *,
     carry: tuple[CodecState, Array] | None = None,
     blocks_before: int | Array = 0,
-    engine: str = "scan",
 ) -> tuple[BlockHeaderFields, Array]:
     """Encode a stream of blocks sequentially.
 
@@ -254,7 +242,6 @@ def encode_stream_blocks(
         num_trials,
         carry=carry,
         blocks_before=blocks_before,
-        engine=engine,
     )
     return headers, codes
 
@@ -267,25 +254,16 @@ def encode_stream_blocks_carry(
     *,
     carry: tuple[CodecState, Array] | None = None,
     blocks_before: int | Array = 0,
-    engine: str = "scan",
     warm_on_prev: bool = True,
 ):
     """As :func:`encode_stream_blocks`, returning (headers, codes, carry').
 
     ``blocks`` may carry extra leading lane axes, e.g. (B, S, C, nspb) for a
-    lockstep stream batch — the Pallas engine folds all lane axes onto the
-    VPU. ``valid`` broadcasts over the lane axes. ``warm_on_prev=False``
+    lockstep stream batch. ``valid`` broadcasts over the lane axes. ``warm_on_prev=False``
     statically removes the trial search's previous-block warm-up passes
     (see :func:`search_best_state`; only correct when every block is a
     stream head, i.e. the parallel block-independent mode).
     """
-    if engine == "pallas":
-        return encode_stream_blocks_pallas(
-            blocks, valid, bits_per_sample, num_trials,
-            carry=carry, blocks_before=blocks_before,
-            warm_on_prev=warm_on_prev,
-        )
-
     B, *lane_axes, nspb = blocks.shape
     if carry is None:
         init_state = CodecState.zeros(tuple(lane_axes))
@@ -299,7 +277,7 @@ def encode_stream_blocks_carry(
         cur, prev, hp, v = xs
         if num_trials > 0:
             state = search_best_state(
-                state, cur, prev, hp, v, bits_per_sample, num_trials, engine,
+                state, cur, prev, hp, v, bits_per_sample, num_trials,
                 warm_on_prev=warm_on_prev,
             )
         state = _seed_from_block(state, cur)
@@ -310,173 +288,13 @@ def encode_stream_blocks_carry(
             weight=state.weight,
             history=state.history,
         )
-        state, codes = encode_block_codes(state, cur, bits_per_sample, engine)
+        state, codes = encode_block_codes(state, cur, bits_per_sample)
         return state, (hdr, codes)
 
     final_state, (headers, codes) = lax.scan(
         block_step, init_state, (blocks, prev_blocks, has_prev, valid)
     )
     return headers, codes, (final_state, blocks[-1])
-
-
-def encode_stream_blocks_pallas(
-    blocks: Array,
-    valid: Array,
-    bits_per_sample: int,
-    num_trials: int,
-    *,
-    carry: tuple[CodecState, Array] | None = None,
-    blocks_before: int | Array = 0,
-    warm_on_prev: bool = True,
-    _force_per_pass: bool = False,
-):
-    """Pallas-engined sequential block encode.
-
-    Dispatches to the single-execution whole-stream kernel
-    (ops/pallas_encode_fused) when the block geometry fits its VMEM budget —
-    equal throughput, ~8x faster compile — and otherwise to the per-pass
-    kernel pipeline below.
-
-    Per-pass layout strategy: every block's sample slots are converted to
-    the kernel's time-major tile layout **once** up front (the trial search
-    touches each block up to six times; re-transposing per pass dominated
-    the runtime otherwise). States flow flat (L,) between kernel calls;
-    measure passes skip the code output entirely.
-    """
-    nspb_static = blocks.shape[-1]
-    from .pallas_encode_fused import encode_stream_fused, supports_fused_encode
-
-    if supports_fused_encode(nspb_static) and not _force_per_pass:
-        return encode_stream_fused(
-            blocks, valid, bits_per_sample, num_trials,
-            carry=carry, blocks_before=blocks_before,
-            warm_on_prev=warm_on_prev,
-        )
-    from .pallas_decode import warm_fused_engine
-    from .pallas_encode import encode_scan_tiles, to_timemajor
-
-    # Resolve the step-size correction set now if we are not already inside
-    # a jit trace (memoised for the in-trace uses below).
-    from jax._src import core as _core
-
-    if _core.trace_state_clean():
-        warm_fused_engine()
-
-    B, *lane_axes, nspb = blocks.shape
-    L = 1
-    for d in lane_axes:
-        L *= d
-    T = nspb - FILTER_ORDER
-
-    flat = blocks.reshape(B, L, nspb).astype(jnp.int32)
-    if carry is None:
-        init_state = CodecState.zeros((L,))
-        prev0 = jnp.zeros_like(flat[0])
-    else:
-        init_state, prev0 = carry
-        init_state = CodecState(
-            history=init_state.history.reshape(L, FILTER_ORDER),
-            weight=init_state.weight.reshape(L, FILTER_ORDER),
-            step_index=init_state.step_index.reshape(L),
-        )
-        prev0 = prev0.reshape(L, nspb).astype(jnp.int32)
-
-    # One bulk relayout for all blocks: (B, L, T) -> (B, Tp, tiles, 8, 128)
-    tm = jax.vmap(to_timemajor)(flat[..., FILTER_ORDER:])
-    heads = flat[..., :FILTER_ORDER]  # (B, L, 4)
-    prev_tm0 = to_timemajor(prev0[..., FILTER_ORDER:])
-    prev_head0 = prev0[..., :FILTER_ORDER]
-    prev_tm = jnp.concatenate([prev_tm0[None], tm[:-1]], axis=0)
-    prev_heads = jnp.concatenate([prev_head0[None], heads[:-1]], axis=0)
-    has_prev = jnp.arange(B) + jnp.asarray(blocks_before, jnp.int32) >= 1
-    # valid may be (B,) or broadcastable over lane axes (e.g. (B, S, 1) for a
-    # stream batch); normalise to flat per-lane counts (B, L).
-    va = jnp.asarray(valid, jnp.int32)
-    while va.ndim < 1 + len(lane_axes):
-        va = va[..., None]
-    valid_b = jnp.broadcast_to(va, (B, *lane_axes)).reshape(B, L)
-    nspb_full = jnp.full((L,), nspb, dtype=jnp.int32)
-
-    def seed(state: CodecState, head: Array) -> CodecState:
-        return state._replace(history=head[..., ::-1])
-
-    def measure(state: CodecState, block_tm, head, v):
-        seeded = seed(state, head)
-        _, (idx2, h2, w2), sse = encode_scan_tiles(
-            block_tm,
-            seeded.step_index,
-            seeded.history,
-            seeded.weight,
-            v,
-            bits_per_sample=bits_per_sample,
-            emit_codes=False,
-        )
-        new_state = CodecState(h2, w2, idx2)
-        skip = jnp.broadcast_to(v < FILTER_ORDER, (L,))
-        out_state = _select_state(skip, state, new_state)
-        out_sse = cs.u64_select(skip, cs.u64_zero((L,)), sse)
-        return out_state, out_sse
-
-    def block_step(state: CodecState, xs):
-        cur_tm, cur_head, p_tm, p_head, hp, v = xs
-
-        if num_trials > 0:
-            _, min_sse = measure(state, cur_tm, cur_head, v)
-            best = state
-            tmp = state
-            for _ in range(num_trials):
-                if warm_on_prev:
-                    warmed, _ = measure(tmp, p_tm, p_head, nspb_full)
-                    tmp = _select_state(
-                        jnp.broadcast_to(hp, (L,)), warmed, tmp
-                    )
-                candidate = tmp
-                tmp, sse = measure(tmp, cur_tm, cur_head, v)
-                better = cs.sse_better(sse, min_sse)
-                best = _select_state(better, candidate, best)
-                min_sse = cs.u64_select(better, sse, min_sse)
-            state = best
-
-        state = seed(state, cur_head)
-        state, shift = round_weights(state)
-        hdr = BlockHeaderFields(
-            step_index=state.step_index,
-            shift=shift,
-            weight=state.weight,
-            history=state.history,
-        )
-        codes, (idx2, h2, w2), _ = encode_scan_tiles(
-            cur_tm,
-            state.step_index,
-            state.history,
-            state.weight,
-            jnp.full((L,), nspb, dtype=jnp.int32),
-            bits_per_sample=bits_per_sample,
-            emit_codes=True,
-        )
-        return CodecState(h2, w2, idx2), (hdr, codes[:, :T])
-
-    final_state, (headers, codes) = lax.scan(
-        block_step,
-        init_state,
-        (tm, heads, prev_tm, prev_heads, has_prev, valid_b),
-    )
-
-    def unflat(x):
-        return x.reshape(B, *lane_axes, *x.shape[2:])
-
-    headers = BlockHeaderFields(
-        step_index=unflat(headers.step_index),
-        shift=unflat(headers.shift),
-        weight=unflat(headers.weight),
-        history=unflat(headers.history),
-    )
-    out_state = CodecState(
-        history=final_state.history.reshape(*lane_axes, FILTER_ORDER),
-        weight=final_state.weight.reshape(*lane_axes, FILTER_ORDER),
-        step_index=final_state.step_index.reshape(*lane_axes),
-    )
-    return headers, unflat(codes), (out_state, blocks[-1])
 
 
 def encode_stream_words(
@@ -487,38 +305,28 @@ def encode_stream_words(
     *,
     carry: tuple[CodecState, Array] | None = None,
     blocks_before: int | Array = 0,
-    engine: str = "scan",
     warm_on_prev: bool = True,
     need_carry: bool = True,
 ):
     """As :func:`encode_stream_blocks_carry` but returning **packed** codes.
 
     Returns (headers, kernel words (B, ..., Wk) uint32, carry') where every
-    u32 word holds 8 LSB-first 4-bit code slots (the fused kernels' native
-    format, ops.pallas_decode.pack_code_words). This is the wire pipeline's
+    u32 word holds 8 LSB-first 4-bit code slots (the decode kernel's code
+    format, ops.wire32.pack_code_words). This is the wire pipeline's
     entry: ops.wire32.kernel_words_to_wire consumes the words directly, so
     the 8x nibble unpack/repack round trip of the int32-codes contract never
-    happens. The Pallas engine emits the words straight from its kernel;
-    the scan engine packs with one XLA shift/or chain.
+    happens.
 
-    ``need_carry=False`` lets the fused kernel skip reconstructing the
-    final chain state (a full extra pass over the last block); the carry
-    slot of the return value is then ``None``.
+    ``need_carry=False`` drops the final chain state; the carry slot of the
+    return value is then ``None``.
     """
-    if engine == "pallas":
-        from .pallas_encode_fused import encode_stream_fused
-
-        return encode_stream_fused(
-            blocks, valid, bits_per_sample, num_trials,
-            carry=carry, blocks_before=blocks_before, packed_codes=True,
-            warm_on_prev=warm_on_prev, need_carry=need_carry,
-        )
     headers, codes, carry_out = encode_stream_blocks_carry(
         blocks, valid, bits_per_sample, num_trials,
-        carry=carry, blocks_before=blocks_before, engine=engine,
-        warm_on_prev=warm_on_prev,
+        carry=carry, blocks_before=blocks_before, warm_on_prev=warm_on_prev,
     )
-    from .pallas_decode import pack_code_words
+    if not need_carry:
+        carry_out = None
+    from .wire32 import pack_code_words
 
     T = codes.shape[-1]
     kw = pack_code_words(codes.reshape(-1, T).astype(jnp.uint32))
@@ -531,13 +339,12 @@ def encode_blocks_parallel(
     bits_per_sample: int,
     num_trials: int,
     *,
-    engine: str = "scan",
     chunk_blocks: int = 1,
     warm_passes: int = 0,
 ):
     """Block-parallel encode: the block axis joins the lane axes.
 
-    The TPU-native encode path the format admits but the reference never
+    The device encode path the format admits but the reference never
     exploits: each block header carries the complete decoder state
     (reference: src/aad_decoder.c:363-380), so an encoder that treats a
     block as a *stream head* — exactly the reference's first-block
@@ -604,14 +411,13 @@ def encode_blocks_parallel(
     carry = None
     for _ in range(warm_passes):
         st = parallel_warm_states(
-            xs, vs, bits_per_sample, engine=engine, carry=carry,
-            warm_on_prev=warm,
+            xs, vs, bits_per_sample, carry=carry, warm_on_prev=warm,
         )
         carry = (shift_chunk_states(st), jnp.zeros_like(xs[0]))
 
     headers, kw, _ = encode_stream_words(
         xs, vs, bits_per_sample, num_trials,
-        engine=engine, warm_on_prev=warm, need_carry=False, carry=carry,
+        warm_on_prev=warm, need_carry=False, carry=carry,
     )
     return jax.tree.map(from_chunks, headers), from_chunks(kw)
 
@@ -621,8 +427,6 @@ def encode_blocks_parallel_flat(
     valid: Array,
     bits_per_sample: int,
     num_trials: int,
-    *,
-    engine: str = "scan",
 ):
     """Folded-lane fast path of :func:`encode_blocks_parallel` (c=1 only).
 
@@ -630,17 +434,15 @@ def encode_blocks_parallel_flat(
     channel-major fold of (B, C, nspb) (all of channel 0's blocks first,
     matching the decode pipeline's lane order) — and ``valid`` is (L,).
     Semantically identical to ``encode_blocks_parallel(chunk_blocks=1)``
-    on the unfolded array; the fold exists because a (B, 2, nspb) device
-    array tiles its 2-wide sublane axis 8-padded, making every reshape
-    across it a materialised multi-pass relayout (~1.25 ms of a 4.5 ms
-    parallel encode at 32.5 M samples), while (L, nspb) tiles cleanly.
+    on the unfolded array; the fold keeps each channel's blocks
+    contiguous, matching the host's natural (C, N) staging.
 
     Returns (headers with (L,) leaves, (L, Wk) uint32 kernel words).
     """
     headers, kw, _ = encode_stream_words(
         blocks[None], jnp.asarray(valid, jnp.int32)[None],
         bits_per_sample, num_trials,
-        engine=engine, warm_on_prev=False, need_carry=False,
+        warm_on_prev=False, need_carry=False,
     )
     return jax.tree.map(lambda x: x[0], headers), kw[0]
 
@@ -650,7 +452,6 @@ def parallel_warm_states(
     vs: Array,
     bits_per_sample: int,
     *,
-    engine: str = "scan",
     carry=None,
     warm_on_prev: bool = False,
 ) -> CodecState:
@@ -663,19 +464,8 @@ def parallel_warm_states(
     interleaves these passes with a ring handoff collective
     (parallel.sharded.encode_blocks_parallel_sharded).
     """
-    c = xs.shape[0]
-    if engine == "pallas" and c == 1:
-        from .pallas_encode_fused import encode_stream_fused
-
-        _, _, st = encode_stream_fused(
-            xs, vs, bits_per_sample, 0, carry=carry,
-            warm_on_prev=False, packed_codes=True,
-            emit_block_states=True,
-        )
-        return jax.tree.map(lambda x: x[0], st)
     _, _, (st, _) = encode_stream_blocks_carry(
-        xs, vs, bits_per_sample, 0, carry=carry,
-        engine=engine, warm_on_prev=warm_on_prev,
+        xs, vs, bits_per_sample, 0, carry=carry, warm_on_prev=warm_on_prev,
     )
     return st
 

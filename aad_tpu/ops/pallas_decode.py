@@ -1,28 +1,27 @@
-"""Fully-fused Pallas TPU decode kernel: codes -> samples in one pass.
+"""Fused decode kernel for the GPU: code words -> samples in one launch.
 
-Fuses the entire per-sample decode recurrence (reference:
-src/aad_decoder.c:269-318) — step-index adaptation, step-size lookup,
-quantised-difference reconstruction and the LMS filter — into a single
-sequential kernel, with independent block x channel tasks tiled (8, 128)
-onto the VPU.
+Pallas through Triton (``backend="triton"``). The whole per-sample decode
+recurrence (reference: src/aad_decoder.c:269-318) — step-index
+adaptation, step-size lookup, quantised-difference reconstruction and the
+LMS filter — runs in one kernel:
 
-The two table lookups that block naive vectorisation are eliminated:
+* one program owns ``LANE_BLOCK`` independent (block, channel) lanes, one
+  lane per thread, and keeps each lane's decoder state in registers;
+* time is a ``fori_loop`` over the lane's packed code words inside the
+  program (8 LSB-first 4-bit code slots per u32 word, the layout
+  ``ops.wire32.data_to_kernel_words`` produces time-major, so every word
+  load coalesces across the lane block). The next word is loaded before
+  the current one decodes, so the load latency hides behind the chain;
+* the 256-entry step-size table is read from memory (it stays in L1);
+  the <= 16-entry index-delta table is a short select chain;
+* the four header samples are emitted inline ahead of the code samples,
+  so each lane's output is exactly its block's ``nspb`` samples, stored
+  two int16 per u32 word (LSB first), time-major so stores coalesce; one
+  XLA transpose turns them into lane-major int16 rows.
 
-* the <=16-entry index-delta table becomes a short select chain on the code
-  bits (tables: src/aad_tables.c:8-45);
-* the 256-entry step-size table is replaced by its *defining formula*
-  ``round(x**1.1 + 2**(c*x))`` (reference: src/aad_tables.c:57) evaluated in
-  f32 on the VPU plus a tiny compile-time correction set. Exactness is not
-  assumed: the formula has only 256 possible inputs, so at initialisation we
-  evaluate all of them through a probe kernel using the identical op
-  sequence, diff against the integer table, and bake per-slot corrections
-  into the kernel closure. A compiler change that shifts transcendental
-  rounding is caught by the probe and simply yields a different (still
-  exhaustively verified) correction set.
-
-Arithmetic note: f32 holds integers up to 2**24 exactly, so the +corrections
-and the final int conversion are exact; all other codec arithmetic stays
-int32 with C wraparound semantics.
+The work is integer only; all arithmetic is int32 with C wraparound.
+Interpret mode (``interpret=True``) runs the same kernel on the CPU for
+the tests; it is never chosen implicitly.
 """
 
 from __future__ import annotations
@@ -31,10 +30,9 @@ import functools
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 from jax import lax
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 from ..constants import (
     FIXEDPOINT_0_5,
@@ -47,65 +45,23 @@ from ..constants import (
     TABLES_FLOAT_DIGITS,
 )
 from ..tables import INDEX_TABLES, STEPSIZE_TABLE
-from .pallas_common import interpret_mode
+from .wire32 import pack_code_words
 
-SUBLANES = 8
-LANES = 128
-TILE = SUBLANES * LANES
-T_CHUNK = 256
-
-_FORMULA_C = np.float32(np.log2(32767 - 255**1.1) / 255)
+# Lanes per program (one per thread) and warps per program.
+LANE_BLOCK = 128
+NUM_WARPS = 4
 
 
-def _stepsize_f32(slot: jax.Array) -> jax.Array:
-    """Step-size formula on int32 slots; must stay op-identical to the probe.
-
-    Only Python-scalar constants (weak types) — the probe traces this both
-    inside and outside ambient jit contexts and must not capture arrays.
-    """
-    xf = slot.astype(jnp.float32)
-    # slot == 0: log2(0) = -inf and exp2(-inf) = 0 in IEEE f32, which is
-    # exactly the wanted 0**1.1 = 0 — no max/where guards needed. The
-    # exhaustive probe proves this holds on the actual hardware/compiler.
-    p = jnp.exp2(1.1 * jnp.log2(xf))
-    e = jnp.exp2(float(_FORMULA_C) * xf)
-    return jnp.round(p + e)
-
-
-@functools.cache
-def stepsize_corrections() -> tuple[tuple[int, int], ...]:
-    """Probe the on-device formula over all 256 slots; return (slot, delta)s.
-
-    Exhaustive over the full input domain, so the corrected formula is
-    *proven* equal to the table for the current compiler/hardware.
-    """
-
-    def probe_kernel(slot_ref, out_ref):
-        out_ref[:] = _stepsize_f32(slot_ref[:]).astype(jnp.int32)
-
-    slots = np.minimum(np.arange(TILE, dtype=np.int32), 255).reshape(
-        SUBLANES, LANES
-    )
-    # NOTE: must first be invoked *outside* any jit trace (the probe is a real
-    # device execution). The codec layer guarantees this by calling
-    # warm_fused_engine() eagerly before building jitted pipelines; the
-    # result is memoised for any subsequent in-trace use.
-    out = pl.pallas_call(
-        probe_kernel,
-        out_shape=jax.ShapeDtypeStruct((SUBLANES, LANES), jnp.int32),
-        in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM)],
-        out_specs=pl.BlockSpec(memory_space=pltpu.VMEM),
-        interpret=interpret_mode(),
-    )(jnp.asarray(slots))
-    got = np.asarray(out).reshape(-1)[:256]
-    want = np.asarray(STEPSIZE_TABLE)
-    diffs = np.nonzero(got != want)[0]
-    return tuple((int(s), int(want[s] - got[s])) for s in diffs)
-
-
-def warm_fused_engine() -> None:
-    """Resolve the step-size correction set eagerly (idempotent)."""
-    stepsize_corrections()
+def check_platform(interpret: bool) -> None:
+    """The compiled kernel needs a GPU; interpret mode needs anything else."""
+    platform = jax.default_backend()
+    if interpret and platform == "gpu":
+        raise ValueError("the fused decode kernel is compiled on the GPU; "
+                         "interpret mode is for CPU tests only")
+    if not interpret and platform != "gpu":
+        raise ValueError(f"the fused decode kernel needs a GPU, found "
+                         f"{platform!r}; use engine='scan' or, in tests, "
+                         "engine='fused_interpret'")
 
 
 def _delta_select(mag: jax.Array, bits_per_sample: int) -> jax.Array:
@@ -115,77 +71,46 @@ def _delta_select(mag: jax.Array, bits_per_sample: int) -> jax.Array:
     delta ignores it — reference: src/aad_tables.c:8-45).
     """
     tab = [int(v) for v in INDEX_TABLES[bits_per_sample][: 2 ** (bits_per_sample - 1)]]
-    if bits_per_sample == 2:
-        return jnp.where(mag == 0, jnp.int32(tab[0]), jnp.int32(tab[1]))
-    if bits_per_sample == 3:
-        return jnp.where(
-            mag == 0,
-            jnp.int32(tab[0]),
-            jnp.where(
-                mag == 1,
-                jnp.int32(tab[1]),
-                jnp.where(mag == 2, jnp.int32(tab[2]), jnp.int32(tab[3])),
-            ),
-        )
-    # 4-bit: [-18, -17, -14, 16, 32, 64, 128, 256]; entries 3.. are 16 << (m-3)
-    # and the low half is the affine-in-bits identity mag - 18 + (mag & 2):
-    # mag 0 -> -18, 1 -> -17, 2 -> -14 (two ops instead of a two-select
-    # chain; exact by enumeration).
-    assert tab[:3] == [-18, -17, -14]
-    low = mag - jnp.int32(18) + (mag & jnp.int32(2))
-    high = jnp.left_shift(jnp.int32(16), mag - 3)
-    return jnp.where(mag < 3, low, high)
+    if bits_per_sample == 4:
+        # [-18, -17, -14, 16, 32, 64, 128, 256]: entries 3.. are
+        # 16 << (mag - 3), and mag - 18 + (mag & 2) gives the low three.
+        assert tab[:3] == [-18, -17, -14]
+        low = mag - 18 + (mag & 2)
+        high = jnp.left_shift(jnp.int32(16), jnp.maximum(mag - 3, 0))
+        return jnp.where(mag < 3, low, high)
+    out = jnp.full_like(mag, tab[-1])
+    for m in range(len(tab) - 2, -1, -1):
+        out = jnp.where(mag == m, jnp.int32(tab[m]), out)
+    return out
 
 
-# Packed-word kernel geometry: 8 code nibbles per input u32 word, 2 int16
-# samples per output u32 word. W_CHUNK words per grid step = 8*W_CHUNK
-# samples. Packing cuts the HBM relayout traffic ~3x and the per-step
-# dynamic VMEM loads/stores 8x/2x, which dominate the kernel's cycle count.
-W_CHUNK = T_CHUNK // 8
-
-
-def _decode_word_step(
-    word, carry, *, bits_per_sample: int, corrections, unroll: int = 8
-):
-    """Decode the 8 code nibbles of one word tile; returns (samples, carry)."""
+def _decode_word(word, state, table_ref, bits_per_sample: int):
+    """Decode the 8 code slots of one word; returns (8 samples, state)."""
     signbit = 1 << (bits_per_sample - 1)
     absmask = signbit - 1
     wshift = FIXEDPOINT_DIGITS + LMSFILTER_SHIFT
     half = jnp.int32(FIXEDPOINT_0_5)
-    lo16 = jnp.int32(INT16_MIN)
-    hi16 = jnp.int32(INT16_MAX)
 
-    h0, h1, h2, h3, w0, w1, w2, w3, idx = carry
+    h0, h1, h2, h3, w0, w1, w2, w3, idx = state
     outs = []
-    for k in range(unroll):
+    for k in range(8):
         code = (word >> (4 * k)) & 0xF
         mag = code & absmask
 
-        # step size from the verified formula (+ corrections). idx stays
-        # in [0, 4080] by construction: every header parse clamps the
-        # 12-bit wire field (the reference's UB case) BEFORE the kernel,
-        # so no per-sample slot min is needed in this dependent chain.
-        slot = (idx + TABLES_FLOAT_0_5) >> TABLES_FLOAT_DIGITS
-        stepsize = _stepsize_f32(slot).astype(jnp.int32)
-        for s, d in corrections:
-            stepsize = stepsize + jnp.where(slot == s, jnp.int32(d), jnp.int32(0))
+        # idx stays in [0, 4080]: every header parse clamps the 12-bit wire
+        # field before the kernel, so the slot is always inside the table.
+        stepsize = table_ref[(idx + TABLES_FLOAT_0_5) >> TABLES_FLOAT_DIGITS]
 
         # quantised difference (reference: src/aad_decoder.c:284-288)
         qmag = (stepsize * ((mag << 1) + 1)) >> (bits_per_sample - 1)
         qdiff = jnp.where((code & signbit) != 0, -qmag, qmag)
 
         # index adaptation (reference: src/aad_tables.h:31-43)
-        idx = jnp.maximum(
-            jnp.int32(0),
-            jnp.minimum(
-                jnp.int32(STEP_INDEX_MAX),
-                idx + _delta_select(mag, bits_per_sample),
-            ),
-        )
+        idx = jnp.clip(idx + _delta_select(mag, bits_per_sample), 0, STEP_INDEX_MAX)
 
         # LMS reconstruction (reference: src/aad_decoder.c:291-315)
         pred = (half + h0 * w0 + h1 * w1 + h2 * w2 + h3 * w3) >> FIXEDPOINT_DIGITS
-        s = jnp.maximum(lo16, jnp.minimum(hi16, qdiff + pred))
+        s = jnp.clip(qdiff + pred, INT16_MIN, INT16_MAX)
         w0 = w0 + ((qdiff * h0 + half) >> wshift)
         w1 = w1 + ((qdiff * h1 + half) >> wshift)
         w2 = w2 + ((qdiff * h2 + half) >> wshift)
@@ -196,400 +121,127 @@ def _decode_word_step(
 
 
 def _pack_pair(lo_s, hi_s):
-    """Two int16-valued samples -> one output word (LSB-first)."""
-    return (hi_s << 16) | (lo_s & jnp.int32(0xFFFF))
+    """Two int16-valued samples -> one u32 output word (LSB-first)."""
+    return ((hi_s << 16) | (lo_s & 0xFFFF)).astype(jnp.uint32)
 
 
-def _make_kernel(
-    bits_per_sample: int,
-    corrections: tuple[tuple[int, int], ...],
-    with_head: bool = False,
-    w_chunk: int = W_CHUNK,
-):
-    """Fused decode kernel; ``with_head`` emits the 4 header samples inline.
+def _make_kernel(bits_per_sample: int, n_words: int):
+    """Kernel over one lane block: time-major (n_words, LB) words in,
+    time-major (4 * n_words, LB) sample-pair words out."""
 
-    With ``with_head`` the per-lane output stream is
-    ``[hist3 hist2 | hist1 hist0 | s0 s1 | ...]`` — i.e. exactly the block's
-    nspb samples in order (reference: src/aad_decoder.c:386-391) — by
-    shifting every code word's output two rows down and carrying the two
-    spilled words into the next grid step in scratch. This deletes the
-    XLA-side head concatenation, a full minor-axis pass over the output.
-    """
+    def kernel(words_ref, idx_ref, hist_ref, wgt_ref, table_ref, out_ref):
+        h = [hist_ref[k, :] for k in range(4)]
+        w = [wgt_ref[k, :] for k in range(4)]
+        state = (*h, *w, idx_ref[:])
+        # header samples, oldest first (reference: src/aad_decoder.c:386-391)
+        out_ref[0, :] = _pack_pair(h[3], h[2])
+        out_ref[1, :] = _pack_pair(h[1], h[0])
 
-    def kernel(words_ref, idx_ref, h_ref, w_ref, out_ref, state):
-        chunk_idx = pl.program_id(1)
-
-        @pl.when(chunk_idx == 0)
-        def _init():
-            for k in range(4):
-                state[k] = h_ref[0, k]
-                state[4 + k] = w_ref[0, k]
-            state[8] = idx_ref[0, 0]
-            if with_head:
-                # head words: samples (hist3, hist2) then (hist1, hist0)
-                state[9] = _pack_pair(h_ref[0, 3], h_ref[0, 2])
-                state[10] = _pack_pair(h_ref[0, 1], h_ref[0, 0])
-
-        row_shift = 2 if with_head else 0
-        n_loop = w_chunk - 1 if with_head else w_chunk
-
-        # The output buffer is uint32: the packed sample-pair words leave
-        # the kernel in their wire dtype so no XLA-side bitcast pass exists
-        # (a real 0.15 ms pass over the headline output otherwise). The
-        # .astype on a packed s32 word is a free in-register bitcast.
-        if with_head:
-            out_ref[0, 0] = state[9].astype(jnp.uint32)
-            out_ref[1, 0] = state[10].astype(jnp.uint32)
-
-        def word_step(wi, carry):
-            word = words_ref[wi, 0]
-            outs, carry = _decode_word_step(
-                word, carry, bits_per_sample=bits_per_sample,
-                corrections=corrections,
-            )
-            # pack pairs of int16-valued samples into output words
+        def step(i, carry):
+            word, state = carry
+            nxt = words_ref[jnp.minimum(i + 1, n_words - 1), :]
+            outs, state = _decode_word(word, state, table_ref, bits_per_sample)
             for j in range(4):
-                out_ref[wi * 4 + j + row_shift, 0] = _pack_pair(
-                    outs[2 * j], outs[2 * j + 1]
-                ).astype(jnp.uint32)
-            return carry
+                out_ref[4 * i + 2 + j, :] = _pack_pair(outs[2 * j], outs[2 * j + 1])
+            return nxt, state
 
-        carry = tuple(state[k] for k in range(9))
-        carry = lax.fori_loop(0, n_loop, word_step, carry)
-        if with_head:
-            # final word of the chunk: two rows fit, two spill to the next
-            # grid step (the last chunk's spill is pad garbage, dropped by
-            # the caller's sample slice).
-            outs, carry = _decode_word_step(
-                words_ref[w_chunk - 1, 0], carry,
-                bits_per_sample=bits_per_sample, corrections=corrections,
-            )
-            out_ref[w_chunk * 4 - 2, 0] = _pack_pair(outs[0], outs[1]).astype(
-                jnp.uint32
-            )
-            out_ref[w_chunk * 4 - 1, 0] = _pack_pair(outs[2], outs[3]).astype(
-                jnp.uint32
-            )
-            state[9] = _pack_pair(outs[4], outs[5])
-            state[10] = _pack_pair(outs[6], outs[7])
-        for k in range(9):
-            state[k] = carry[k]
+        word, state = lax.fori_loop(
+            0, n_words - 1, step, (words_ref[0, :], state)
+        )
+        # The head shifts the output two rows: the last word's final four
+        # slots fall past the buffer and are pad by construction.
+        outs, _ = _decode_word(word, state, table_ref, bits_per_sample)
+        out_ref[4 * n_words - 2, :] = _pack_pair(outs[0], outs[1])
+        out_ref[4 * n_words - 1, :] = _pack_pair(outs[2], outs[3])
 
     return kernel
 
 
-def pack_code_words(codes: jax.Array) -> jax.Array:
-    """(L, T) codes (<= 4 bits each) -> (L, ceil(T/8)) u32 words, LSB-first."""
-    L, T = codes.shape
-    W = -(-T // 8)
-    c = jnp.pad(codes.astype(jnp.uint32), ((0, 0), (0, W * 8 - T)))
-    c = c.reshape(L, W, 8)
-    word = c[..., 0]
-    for k in range(1, 8):  # unrolled or-chain fuses into one pass
-        word = word | (c[..., k] << (4 * k))
-    return word
-
-
-def unpack_sample_words(words: jax.Array) -> jax.Array:
-    """(L, W2) u32 (2 x int16 per word, LSB-first) -> (L, 2*W2) int32."""
-    w = lax.bitcast_convert_type(words, jnp.int32)
-    lo = (w << 16) >> 16  # arithmetic: sign-extend the low half
-    hi = w >> 16
-    return jnp.stack([lo, hi], axis=-1).reshape(w.shape[0], -1)
-
-
-def unpack_sample_words_i16(words: jax.Array) -> jax.Array:
-    """(L, W2) u32 sample-pair words -> (L, 2*W2) int16.
-
-    A pure bitcast: the packed word is (hi << 16) | (lo & 0xFFFF) with lo
-    the earlier sample, which is exactly little-endian int16 pair order.
-    The int32 variant above costs four full XLA passes (shift x2, stack
-    interleave, re-tile — measured 3.9 ms of a 5.5 ms pipeline at 57.6 M
-    samples); samples are int16-valued by format, so this is lossless.
-    """
-    w = lax.bitcast_convert_type(words, jnp.int16)  # (L, W2, 2)
-    return w.reshape(w.shape[0], -1)
-
-
-def decode_fused(
-    codes: jax.Array,
-    step_index: jax.Array,
-    history: jax.Array,
-    weight: jax.Array,
-    *,
-    bits_per_sample: int,
-) -> jax.Array:
-    """codes (..., T) + per-lane initial state -> samples (..., T) int32.
-
-    TPU-only; bit-exact with the two-phase scan engine (cross-checked by the
-    conformance suite on golden fixtures). Call :func:`warm_fused_engine`
-    once (eagerly) before using this from inside other jitted code.
-    """
-    corrections = stepsize_corrections()
-    return _decode_fused_impl(
-        codes,
-        step_index,
-        history,
-        weight,
-        bits_per_sample=bits_per_sample,
-        corrections=corrections,
-    )
-
-
 @functools.partial(
-    jax.jit, static_argnames=("bits_per_sample", "corrections")
+    jax.jit, static_argnames=("num_out", "bits_per_sample", "interpret")
 )
-def _decode_fused_impl(
-    codes: jax.Array,
-    step_index: jax.Array,
-    history: jax.Array,
-    weight: jax.Array,
-    *,
-    bits_per_sample: int,
-    corrections: tuple[tuple[int, int], ...],
-) -> jax.Array:
-    lane_shape = codes.shape[:-1]
-    T = codes.shape[-1]
-    L = int(np.prod(lane_shape, dtype=np.int64)) if lane_shape else 1
-
-    words = pack_code_words(codes.reshape(L, T))  # (L, W) u32
-    samples = _decode_words(
-        words,
-        step_index.reshape(L),
-        history.reshape(L, 4),
-        weight.reshape(L, 4),
-        T,
-        bits_per_sample,
-        corrections,
-    )
-    return samples.reshape(*lane_shape, T)
-
-
-def decode_fused_words(
-    words: jax.Array,
-    step_index: jax.Array,
-    history: jax.Array,
-    weight: jax.Array,
-    num_codes: int,
-    *,
-    bits_per_sample: int,
-) -> jax.Array:
-    """As :func:`decode_fused` but consuming pre-packed code words.
-
-    ``words``: (L, ceil(num_codes/8)) uint32, 8 LSB-first 4-bit code slots
-    per word (ops.wire32 builds this layout straight from wire words).
-    """
-    corrections = stepsize_corrections()
-    return _decode_words(
-        words, step_index, history, weight, num_codes, bits_per_sample, corrections
-    )
-
-
-@functools.partial(
-    jax.jit, static_argnames=("T", "bits_per_sample", "corrections")
-)
-def _decode_words(
-    words, step_index, history, weight, T, bits_per_sample, corrections
-):
-    L, W = words.shape
-    ii = step_index.reshape(L).astype(jnp.int32)
-    h = history.reshape(L, 4)
-    w = weight.reshape(L, 4)
-
-    Lp = -(-L // TILE) * TILE
-    Wp = -(-W // W_CHUNK) * W_CHUNK
-    words = jnp.pad(words, ((0, Lp - L), (0, Wp - W)))
-    ii = jnp.pad(ii, (0, Lp - L))
-    h = jnp.pad(h, ((0, Lp - L), (0, 0)))
-    w = jnp.pad(w, ((0, Lp - L), (0, 0)))
-
-    n_tiles = Lp // TILE
-    words_t = words.reshape(n_tiles, SUBLANES, LANES, Wp).transpose(3, 0, 1, 2)
-    return _decode_tiled(
-        words_t, ii, h, w, T, bits_per_sample, corrections
-    )[:L]
-
-
-def decode_words_timemajor(
+def decode_words(
     words_tm: jax.Array,
     step_index: jax.Array,
     history: jax.Array,
     weight: jax.Array,
+    *,
     num_out: int,
+    bits_per_sample: int,
+    interpret: bool = False,
+) -> jax.Array:
+    """Time-major code words + per-lane state -> packed sample words.
+
+    Args:
+      words_tm: (W, L) uint32, 8 LSB-first 4-bit code slots per word,
+        lane l's codes in column l. ``8 * W >= num_out`` (room for the
+        four inline header samples).
+      step_index: (L,) int32 in [0, 4080]; history/weight: (L, 4) int32.
+      num_out: samples kept per lane (``nspb``, even).
+    Returns:
+      (L, num_out) int16: lane l's header samples then its decoded codes.
+    """
+    check_platform(interpret)
+    W, L = words_tm.shape
+    if num_out % 2 or 8 * W < num_out:
+        raise ValueError(f"{W} code words cannot hold {num_out} samples")
+    Lp = -(-L // LANE_BLOCK) * LANE_BLOCK
+    pad = Lp - L
+
+    def lanes_last(x):  # (L[, 4]) -> ([4,] Lp), lane axis minor and padded
+        x = x.astype(jnp.int32).reshape(L, -1).T
+        return jnp.pad(x, ((0, 0), (0, pad)))
+
+    words = jnp.pad(words_tm.astype(jnp.uint32), ((0, 0), (0, pad)))
+    idx = lanes_last(step_index)[0]
+    table = jnp.asarray(STEPSIZE_TABLE, jnp.int32)
+    lane = lambda i: (0, i)
+    out = pl.pallas_call(
+        _make_kernel(bits_per_sample, W),
+        grid=(Lp // LANE_BLOCK,),
+        in_specs=[
+            pl.BlockSpec((W, LANE_BLOCK), lane),
+            pl.BlockSpec((LANE_BLOCK,), lambda i: (i,)),
+            pl.BlockSpec((4, LANE_BLOCK), lane),
+            pl.BlockSpec((4, LANE_BLOCK), lane),
+            pl.BlockSpec((table.shape[0],), lambda i: (0,)),
+        ],
+        out_specs=pl.BlockSpec((4 * W, LANE_BLOCK), lane),
+        out_shape=jax.ShapeDtypeStruct((4 * W, Lp), jnp.uint32),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS, num_stages=1),
+        interpret=interpret,
+        name="aad_decode",
+    )(words, idx, lanes_last(history), lanes_last(weight), table)
+    # Each word holds two little-endian int16 samples, so the bitcast of
+    # the lane-major words is the int16 sample rows.
+    pairs = lax.bitcast_convert_type(out[: num_out // 2, :L].T, jnp.int16)
+    return pairs.reshape(L, num_out)
+
+
+def decode_codes(
+    codes: jax.Array,
+    step_index: jax.Array,
+    history: jax.Array,
+    weight: jax.Array,
     *,
     bits_per_sample: int,
-    with_head: bool = True,
-    packed_out: bool = False,
+    interpret: bool = False,
 ) -> jax.Array:
-    """As decode_fused_words but with *time-major* (W, L) input words.
+    """codes (..., T) + per-lane state -> (..., T + 4) int32 samples.
 
-    ``L`` must already be a multiple of TILE and ``W`` a multiple of W_CHUNK
-    (the wire32 pipeline pads both host-side so every reshape here is free).
-    Skipping the (L, W) -> (W, lanes) transpose is the point: the wire32
-    path transposes once in compact word space instead. With ``with_head``
-    (default) the kernel emits the four header samples inline, so the
-    result rows are complete nspb-sample blocks; ``num_out`` is the sample
-    count to keep per lane (nspb, or codes_per_block without head).
-
-    With ``packed_out`` the result stays in the kernel's packed sample-pair
-    format: two little-endian int16 samples per uint32 word —
-    **byte-identical** to the int16 sample array (a free host
-    ``.view(int16)``), skipping the device-side unpack pass entirely.
-    Exact-fit geometries (no pad words) return the words **flat 1-D**
-    (row-major (L, num_out//2) order) so the detile transpose and the
-    flatten lower as one fused pass; padded geometries return the sliced
-    (L, num_out//2) 2-D array.
+    The codes-level entry (ops.decode.decode_blocks): header samples first,
+    as the scan engine returns them.
     """
-    corrections = stepsize_corrections()
-    return _decode_words_tm_impl(
-        words_tm, step_index, history, weight, num_out,
-        bits_per_sample, corrections, with_head, packed_out,
+    lane_shape, T = codes.shape[:-1], codes.shape[-1]
+    L = 1
+    for d in lane_shape:
+        L *= d
+    n_out = T + 4 + (T % 2)
+    words = pack_code_words(codes.reshape(L, T), -(-n_out // 8))
+    samples = decode_words(
+        words.T, step_index.reshape(L), history.reshape(L, 4),
+        weight.reshape(L, 4), num_out=n_out,
+        bits_per_sample=bits_per_sample, interpret=interpret,
     )
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=(
-        "T", "bits_per_sample", "corrections", "with_head", "packed_out"
-    ),
-)
-def _decode_words_tm_impl(
-    words_tm, step_index, history, weight, T, bits_per_sample, corrections,
-    with_head, packed_out=False,
-):
-    W, L = words_tm.shape
-    if L % TILE:
-        raise ValueError(f"lane count {L} must be a multiple of {TILE}")
-    n_tiles = L // TILE
-    r = _pick_r(n_tiles)
-    w_chunk = _pick_w_chunk(W, r)
-    Wp = -(-W // w_chunk) * w_chunk
-    if Wp != W:
-        words_tm = jnp.pad(words_tm, ((0, Wp - W), (0, 0)))
-    words_t = words_tm.reshape(Wp, n_tiles, SUBLANES, LANES)
-    ii = step_index.reshape(L).astype(jnp.int32)
-    return _decode_tiled(
-        words_t, ii, history.reshape(L, 4), weight.reshape(L, 4),
-        T, bits_per_sample, corrections, with_head=with_head,
-        as_int16=True, packed_out=packed_out, w_chunk=w_chunk, r=r,
-    )
-
-
-def _pick_r(n_tiles: int) -> int:
-    """Lane-interleave factor: largest of {4, 3, 2} dividing the tile count.
-
-    The decode chain is dependent-op latency-bound (probe, round 3):
-    folding r lane tiles onto the sublane axis gives the scheduler r
-    independent chains. Measured full-pipeline at 57.6 M samples: 57 tiles
-    r=1 31.7 -> r=3 34.2 Gsamples/s; 58 tiles r=1 25.1 -> r=2 27.1; r=8
-    regressed. AAD_TPU_DECODE_R overrides for probing.
-    """
-    import os
-
-    r_env = os.environ.get("AAD_TPU_DECODE_R")
-    if r_env and n_tiles % int(r_env) == 0:
-        return int(r_env)
-    for r in (4, 3, 2):
-        if n_tiles % r == 0:
-            return r
-    return 1
-
-
-def _pick_w_chunk(W: int, r: int = 1) -> int:
-    """Largest divisor of W in [8, 384//r], else the default W_CHUNK.
-
-    A divisor chunk means zero word padding: for exact-fit geometries
-    (wire32.data_words_padded) the kernel's head-integrated output then has
-    no pad rows at all and the caller's sample slice is a no-op — one whole
-    output pass saved. The cap keeps r*w_chunk <= 384 so the double-
-    buffered in+out blocks stay inside VMEM at every interleave factor
-    (~15 MB at r=3, w_chunk=124 — measured fitting).
-    """
-    cap = max(8, 384 // max(r, 1))
-    for c in range(min(W, cap), 7, -1):
-        if W % c == 0:
-            return c
-    return W_CHUNK
-
-
-def _decode_tiled(
-    words_t, ii, h, w, T, bits_per_sample, corrections, with_head=False,
-    as_int16=False, packed_out=False, w_chunk=W_CHUNK, r=None,
-):
-    """Shared kernel launch: (Wp, tiles, 8, 128) words + (Lp,...) states.
-
-    Lane interleave: r adjacent lane tiles fold onto the sublane axis as
-    one (r*8, 128) working set per grid step — the decode chain is
-    dependent-op *latency*-bound, not issue-bound (removing the whole
-    16-op weight update moved the kernel only 2.5%, probe round 3), so
-    independent chains let the scheduler fill the bubbles (see _pick_r
-    for the measured numbers). The fold is a free reshape — adjacent
-    tiles are contiguous in every operand.
-    """
-    Wp, n_tiles = words_t.shape[0], words_t.shape[1]
-    Lp = n_tiles * TILE
-    if r is None:
-        r = _pick_r(n_tiles)
-    ntR = n_tiles // r
-    RS = r * SUBLANES
-    words_t = words_t.reshape(Wp, ntR, RS, LANES)
-    ii_t = ii.reshape(ntR, 1, RS, LANES)
-    h_t = h.T.reshape(4, ntR, RS, LANES).transpose(1, 0, 2, 3)
-    w_t = w.T.reshape(4, ntR, RS, LANES).transpose(1, 0, 2, 3)
-
-    lane_block = lambda i, j: (i, 0, 0, 0)
-    grid = (ntR, Wp // w_chunk)
-    out = pl.pallas_call(
-        _make_kernel(bits_per_sample, corrections, with_head=with_head,
-                     w_chunk=w_chunk),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec(
-                (w_chunk, 1, RS, LANES),
-                lambda i, j: (j, i, 0, 0),
-                memory_space=pltpu.VMEM,
-            ),
-            pl.BlockSpec((1, 1, RS, LANES), lane_block,
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, 4, RS, LANES), lane_block,
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, 4, RS, LANES), lane_block,
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec(
-            (w_chunk * 4, 1, RS, LANES),
-            lambda i, j: (j, i, 0, 0),
-            memory_space=pltpu.VMEM,
-        ),
-        out_shape=jax.ShapeDtypeStruct(
-            (Wp * 4, ntR, RS, LANES), jnp.uint32
-        ),
-        scratch_shapes=[
-            pltpu.VMEM((11 if with_head else 9, RS, LANES), jnp.int32)
-        ],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "arbitrary"),
-        ),
-        interpret=interpret_mode(),
-    )(words_t, ii_t, h_t, w_t)
-
-    # (Wp*4, ntR, RS, 128) sample-pair words -> (Lp, 8*Wp) samples (the
-    # R-fold is contiguous, so the flat lane order is unchanged)
-    if packed_out:
-        assert T % 2 == 0
-        if Wp * 4 == T // 2:
-            # Exact fit (divisor w_chunk, no pad rows): the kernel's u32
-            # output transposes with no dtype conversion — the s32->u32
-            # bitcast used to cost a real 0.15 ms pass here
-            # (benchmarks/probe_perm_detile.py). Returned 2-D (Lp, Wp*4)
-            # rather than flat: flattening to 1-D forces a second
-            # T(8,128)->T(1024) retile pass (~0.165 ms at 57.6 M samples)
-            # on top of the transposing copy, while the 2-D row-major
-            # tiled form is just as final (np.asarray linearises any
-            # device layout during the host fetch).
-            return out.reshape(Wp * 4, Lp).T
-        return out.transpose(1, 2, 3, 0).reshape(Lp, Wp * 4)[:, : T // 2]
-    packed = out.transpose(1, 2, 3, 0).reshape(Lp, Wp * 4)
-    unpack = unpack_sample_words_i16 if as_int16 else unpack_sample_words
-    samples = unpack(packed)[:, :T]
-    return samples
+    return samples[:, : T + 4].astype(jnp.int32).reshape(*lane_shape, T + 4)

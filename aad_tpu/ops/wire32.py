@@ -1,23 +1,19 @@
 """Word-space (u32) wire pipeline: payload bytes -> kernel code words.
 
-TPU XLA handles uint8 poorly: u8 arrays get (32, 128) tiling, so every
-slice/transpose/stack over block bytes lowers to pathological relayouts
-(measured ~3.8 ms of a ~6 ms decode for 11.5 M samples), and the on-device
-``u8 -> u32`` bitcast that would escape byte space is itself slow (two
-round-1 variants measured slower; see docs/DESIGN.md §2). This module
-escapes byte space *on the host*, where reinterpreting the payload as
-little-endian u32 words is a free ``numpy`` view:
+The device pipeline works on u32 words, never on bytes: the host
+reinterprets the payload as little-endian u32 words (a free ``numpy``
+view), so the device moves four codes' worth of bits per element:
 
     host:   payload bytes --view--> (B, words_per_block) uint32
     device: headers  = static single-word shift/mask extractions
-            code words = one compact i32 transpose (time-major) followed by
+            code words = one compact u32 transpose (time-major) followed by
             shift/mask permutations whose stride-2/-3 deinterleaves all land
-            on the *major* axis (row slices — the minor-axis counterpart was
-            measured pathological on this XLA)
+            on the *major* axis (row slices)
 
 The output feeds the fused decode kernel's packed-word format directly
 (8 LSB-first 4-bit code slots per u32 — ops.pallas_decode), so no u8 tensor
-ever exists on device. Wire layout facts: reference src/aad_decoder.c:394-455
+ever exists on device. The time-major layout makes each kernel word load
+coalesce across lanes. Wire layout facts: reference src/aad_decoder.c:394-455
 (data region), src/aad_decoder.c:363-380 (block header).
 """
 
@@ -41,6 +37,7 @@ __all__ = [
     "wire_to_kernel_words",
     "data_to_kernel_words",
     "kernel_words_to_codes",
+    "pack_code_words",
     "kernel_words_to_wire",
     "build_header_words",
     "assemble_wire_words",
@@ -66,9 +63,9 @@ def data_words_padded(geo: BlockGeometry) -> int:
     """Data-region word count, padded so every downstream shape is aligned.
 
     Rounded so that (a) the deinterleave reshape divides evenly and (b) the
-    per-channel kernel word count is a multiple of the fused kernel's
-    W_CHUNK (32). Doing this padding host-side (zero bytes in the row
-    buffer) deletes two whole-array pad passes from the device pipeline.
+    per-channel kernel word count is a multiple of a 32-word granule.
+    Doing this padding host-side (zero bytes in the row buffer) keeps
+    whole-array pad passes out of the device pipeline.
     """
     wd = -(-geo.data_bytes // 4)
     k = _deinterleave_factor(geo)
@@ -82,8 +79,7 @@ def data_words_padded(geo: BlockGeometry) -> int:
         per_group = 2 if nch == 2 else 4
     # Exact fit first: when the per-channel kernel word count can be made
     # exactly nspb/8, the decode kernel's head-integrated output has zero
-    # pad rows and the whole final sample-slice pass disappears (the fused
-    # kernel adapts its time-chunk size to any divisor-friendly W).
+    # pad rows and needs no final sample slice.
     nspb = geo.num_samples_per_block
     if nspb % 8 == 0:
         wk_exact = nspb // 8  # = (T + 4) / 8: exactly the 4-slot head slack
@@ -146,9 +142,9 @@ def block_rows_to_words_split(
     ``hdr`` is (num_blocks, header_words(geo)); ``data`` is
     (num_blocks, data_words_padded(geo)) with the data region re-based to
     byte offset 0 — so the device pipeline never pays the misaligned
-    minor-axis slice that carving the data out of whole-block rows costs
-    (~0.04 ms at 57.6 M samples), and the mono header (18 B, not 4-byte
-    aligned) needs no cross-word funnel shift at all. Rows beyond ``rows``
+    minor-axis slice that carving the data out of whole-block rows costs,
+    and the mono header (18 B, not 4-byte aligned) needs no cross-word
+    funnel shift at all. Rows beyond ``rows``
     are zero (decoded as pad garbage and sliced away by the callers).
     """
     hb = geo.header_bytes
@@ -162,8 +158,7 @@ def block_rows_to_words_split(
     dbuf[:n, : geo.block_size - hb] = rows[:n, hb:]
     # Data ships as (B, G, k) — the deinterleave grouping baked into the
     # host view — so the device pipeline starts from the exact shape its
-    # 3-D transpose wants (the 2-D->3-D reshape cost a 0.046 ms re-tile
-    # pass at 57.6 M samples).
+    # 3-D transpose wants.
     return (
         hbuf.view("<u4").reshape(num_blocks, Hw),
         dbuf.view("<u4").reshape(num_blocks, Wd // k, k),
@@ -290,8 +285,8 @@ def _interleave_rows(parts: list[jax.Array]) -> jax.Array:
 def kernel_words_padded(geo: BlockGeometry) -> int:
     """Per-channel kernel word count produced by wire_to_kernel_words.
 
-    A multiple of the fused kernel's W_CHUNK (guaranteed by
-    data_words_padded); the pad slots decode garbage past codes_per_block
+    A multiple of the 32-word granule (guaranteed by data_words_padded)
+    or the exact fit; the pad slots decode garbage past codes_per_block
     that the final sample slice drops.
     """
     nch, bps = geo.num_channels, geo.bits_per_sample
@@ -310,8 +305,7 @@ def wire_to_kernel_words(words: jax.Array, geo: BlockGeometry) -> jax.Array:
     matching the decode pipeline; Wk = kernel_words_padded(geo) (codes past
     codes_per_block are pad garbage). The single large relayout is one 3-D
     transpose of the data region whose trailing reshape axis makes every
-    stride-k row deinterleave a *free major-axis slice* (minor-axis stride
-    slicing and post-transpose row gathers both measured pathological).
+    stride-k row deinterleave a *free major-axis slice*.
     """
     assert supports_wire32(geo)
     return data_to_kernel_words(_data_words(words, geo), geo)
@@ -389,11 +383,26 @@ def data_to_kernel_words(dw: jax.Array, geo: BlockGeometry) -> jax.Array:
     return jnp.concatenate(per_ch, axis=1) if len(per_ch) > 1 else per_ch[0]
 
 
+def pack_code_words(codes: jax.Array, num_words: int | None = None) -> jax.Array:
+    """(L, T) codes (<= 4 bits each) -> (L, W) u32 words, LSB-first.
+
+    ``W`` defaults to ceil(T / 8); a larger ``num_words`` zero-pads.
+    """
+    L, T = codes.shape
+    W = -(-T // 8) if num_words is None else num_words
+    c = jnp.pad(codes.astype(jnp.uint32), ((0, 0), (0, W * 8 - T)))
+    c = c.reshape(L, W, 8)
+    word = c[..., 0]
+    for k in range(1, 8):  # unrolled or-chain fuses into one pass
+        word = word | (c[..., k] << (4 * k))
+    return word
+
+
 def kernel_words_to_codes(kw: jax.Array, num_codes: int) -> jax.Array:
     """(..., Wk) kernel words -> (..., num_codes) uint8 codes (any engine).
 
-    XLA unpack of the packed-slot format; used to feed the scan/pallas-lms
-    engines and to test the wire permutation without the fused kernel.
+    XLA unpack of the packed-slot format; used to feed the scan engine and
+    to test the wire permutation without the fused kernel.
     """
     parts = [((kw >> (4 * k)) & 0xF).astype(jnp.uint8) for k in range(8)]
     codes = jnp.stack(parts, axis=-1).reshape(*kw.shape[:-1], -1)
@@ -464,10 +473,8 @@ def kernel_words_to_wire(
     ``channel_axis`` selects where the channel axis sits; the default
     ``None`` is the legacy (..., C, Wk) form. The folded-lane pipelines
     pass 0 ((C, ..., Wk), block-parallel) or 1 ((B, C, ..., Wk), batch) —
-    any position above the minor dims makes each channel's words a free
-    slice, where the legacy form puts C in the sublane position and (for
-    C=2) tiles 8-padded, turning every channel slice into a strided
-    gather.
+    any position above the minor dims makes each channel's words a
+    contiguous slice.
     """
     assert supports_wire32(geo)
     nch, bps = geo.num_channels, geo.bits_per_sample
@@ -574,15 +581,10 @@ def build_header_words(
     format.framing.build_block_headers (reference: src/aad_encoder.c:618-655).
     Leaves shaped (..., C[, 4]) like BlockHeaderFields. Returned as a plain
     list (not a stacked array): assemble_wire_words pairs the fields into
-    words directly — stacking then re-slicing with stride 2 on the minor
-    axis lowered to a pathological strided fusion (0.53 ms of a 7 ms batch
-    encode for 64 KB of output).
+    words directly, with no stride-2 re-slicing of a stacked minor axis.
 
     The channel/tap axes are moved to the FRONT once before any extraction:
-    the per-(ch, tap) reads then become free leading-axis slices. Slicing
-    the minor axes directly (the previous form) lowered every extract to a
-    pathological strided fusion (profiled at ~4 ms of a 9 ms parallel
-    encode call together with the header-field slicing this pairs with).
+    the per-(ch, tap) reads then become free leading-axis slices.
     """
     if channel_leading:
         # inputs already (C, ...) / (C, ..., 4) — the folded-lane layout;

@@ -3,8 +3,8 @@
 The codec's parallel structure (SURVEY.md §2.3): block x channel decode
 tasks are fully independent (every block header carries complete state,
 reference: src/aad_decoder.c:363-380), and encode chains state per stream
-but is independent *across* streams. The TPU-native scaling story is
-therefore pure data/sequence parallelism:
+but is independent *across* streams. The scaling story is therefore pure
+data/sequence parallelism:
 
 * **decode**: the flattened lane axis (streams x blocks x channels) shards
   over the whole mesh — "dp" over streams, "sp" over the block (sequence)
@@ -31,10 +31,7 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, PartitionSpec as P
 
-try:  # jax >= 0.5 exposes shard_map at the top level
-    from jax import shard_map
-except ImportError:  # pragma: no cover - older jax
-    from jax.experimental.shard_map import shard_map
+from jax import shard_map
 
 from ..ops.decode import _decode_blocks_impl, resolve_engine
 
@@ -139,7 +136,6 @@ def encode_blocks_parallel_sharded(
     bits_per_sample: int,
     num_trials: int,
     mesh: Mesh,
-    engine: str = "scan",
     chunk_blocks: int = 1,
     warm_passes: int = 0,
 ):
@@ -157,8 +153,8 @@ def encode_blocks_parallel_sharded(
     axis is padded to a multiple of ``mesh.size * chunk_blocks`` so shard
     boundaries always fall on chunk boundaries, and between warm passes
     each shard hands its last chunk's final chain state to the next shard
-    with a ring ``ppermute`` (the mesh's one hot-path collective, riding
-    ICI). Sharded output is therefore **bit-identical to the unsharded
+    with a ring ``ppermute`` (the mesh's one hot-path collective).
+    Sharded output is therefore **bit-identical to the unsharded
     call for every (chunk_blocks, warm_passes)** — pinned by
     tests/test_sharding.py.
 
@@ -199,8 +195,7 @@ def encode_blocks_parallel_sharded(
     def _local(bl, va):
         if warm_passes == 0:
             return encode_blocks_parallel(
-                bl, va, bits_per_sample, num_trials, engine=engine,
-                chunk_blocks=c,
+                bl, va, bits_per_sample, num_trials, chunk_blocks=c,
             )
         B_loc = bl.shape[0]
         G = B_loc // c
@@ -217,8 +212,7 @@ def encode_blocks_parallel_sharded(
         carry = None
         for _ in range(warm_passes):
             st = parallel_warm_states(
-                xs, vs, bits_per_sample, engine=engine, carry=carry,
-                warm_on_prev=warm,
+                xs, vs, bits_per_sample, carry=carry, warm_on_prev=warm,
             )
             # ring handoff: this shard's last-chunk state seeds the next
             # shard's first chunk (shard 0 stays a stream head — ppermute
@@ -234,7 +228,7 @@ def encode_blocks_parallel_sharded(
             )
         headers, kw, _ = encode_stream_words(
             xs, vs, bits_per_sample, num_trials,
-            engine=engine, warm_on_prev=warm, need_carry=False, carry=carry,
+            warm_on_prev=warm, need_carry=False, carry=carry,
         )
         return jax.tree.map(from_chunks, headers), from_chunks(kw)
 

@@ -2,7 +2,7 @@
 
 The reference's hot loops are laced with asserts that only compile in under
 ``-DDEBUG`` (reference: src/aad_internal.h:51-56, e.g. bounds asserts at
-src/aad_decoder.c:402-403). The TPU equivalent: a validation pass over the
+src/aad_decoder.c:402-403). The equivalent here: a validation pass over the
 dense stream tensors (cheap, vectorised, jit-compatible via checkify-style
 host checks) that the codec layer runs when debug mode is enabled.
 

@@ -1,11 +1,10 @@
 """Profiling & throughput instrumentation.
 
 The reference has no instrumentation at all (SURVEY.md §5); this module is
-the TPU build's equivalent: ``jax.profiler`` trace capture around codec
+this framework's equivalent: ``jax.profiler`` trace capture around codec
 calls plus a throughput meter whose methodology is robust against async
 dispatch (on-device dependency chains, single-element materialisation — see
-bench.py for the rationale; naive timing over a remote-device transport can
-be off by orders of magnitude in both directions).
+bench.py for the rationale).
 """
 
 from __future__ import annotations

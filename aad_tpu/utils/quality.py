@@ -56,9 +56,12 @@ def self_check(verbose: bool = False) -> dict:
     """Prove the active engines are bit-exact on this host/device.
 
     Runs a deterministic encode+decode cross-check between the portable
-    scan engine and whatever the auto engines resolve to (Pallas kernels on
-    TPU, native codec on CPU hosts). Returns a report dict; raises
-    AssertionError on any mismatch. Intended for deployment smoke tests.
+    scan engine and whatever the one-shot auto engines resolve to (the
+    native codec where it builds, else scan; block-parallel encode on a
+    GPU runs the scan engine on the device). ``decode_engine`` in the
+    report names the engine the device APIs pick (the fused kernel on a
+    GPU). Returns a report dict; raises AssertionError on any mismatch.
+    Intended for deployment smoke tests.
     """
     import jax
 

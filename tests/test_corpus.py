@@ -83,14 +83,15 @@ def test_jax_spot_check_on_real_audio(fixture_dir):
 
 @pytest.mark.parametrize("name", ["bunny1.wav", "pi_15-25sec.wav"])
 @pytest.mark.parametrize("bps", [2, 3, 4])
-def test_jax_engines_real_audio_grid(fixture_dir, name, bps):
+def test_jax_engines_real_audio_grid(fixture_dir, fused_engine, name, bps):
     """Real audio through the JAX engines, byte-exact vs native.
 
     The reference runs its corpus grid through the codec under test
     (reference: test/test_aad_encode_decode.c:492-636); this sampled grid
     puts real audio through (a) the JAX scan *encoder* — bytes must equal
     the native engine's (itself byte-exact vs the reference binary) — and
-    (b) the scan and fused (interpret on CPU, hardware on TPU) *decoders*.
+    (b) the scan and fused (interpreted on the CPU, compiled on the GPU)
+    *decoders*.
     """
     from aad_tpu.codec.encoder import encode as jax_encode
 
@@ -107,7 +108,7 @@ def test_jax_engines_real_audio_grid(fixture_dir, name, bps):
     assert got == want, f"{name} bps={bps}: scan-encode bytes differ"
 
     _, out_native = native.decode(want)
-    for engine in ("scan", "fused"):
+    for engine in ("scan", fused_engine):
         _, out = jax_decode(want, engine=engine)
         np.testing.assert_array_equal(
             out_native, np.asarray(out), err_msg=f"{name} bps={bps} {engine}"

@@ -7,7 +7,7 @@ method (MS for stereo fixtures), all at num_encode_trials=0, with per-bps
 RMSE ceilings. This module puts every one of those cells through the JAX
 engines — scan *encode* byte-exact vs the native engine (itself pinned
 byte-exact to the reference binary by test_encode_conformance.py) and scan
-*decode* bit-exact vs the native decoder — so "the TPU engines pass the
+*decode* bit-exact vs the native decoder — so "the JAX engines pass the
 reference's conformance grid" holds literally, not just transitively.
 
 The full product is 108 cells (the reference's table lists 107 — it omits
@@ -15,9 +15,8 @@ the (sin300Hz.wav, 2 bps, 4096, MS) cell, an apparent oversight; the
 superset is run here). By default a covering subset runs — every
 (fixture, bps) pair, every block size, both channel modes, and every
 (bps, block) combination appear — to fit the CPU suite's time budget.
-AAD_TPU_FULL_GRID=1 runs all cells, and it is set by two committed
-harnesses: the ci.yml ``full-grid`` job (every push/PR) and
-``tools/run_full_grid.py`` (writes the round's FULLGRID_r*.json record).
+AAD_TPU_FULL_GRID=1 runs all cells; ``tools/run_full_grid.py`` sets it
+and prints a pass/fail record.
 Under FULL_GRID the fused-decode case also runs uncapped (see
 test_grid_cell_fused_decode).
 """
@@ -124,8 +123,8 @@ def test_reference_grid_cell_through_jax_engines(corpus, name, bps, block, ms):
 
 
 @pytest.mark.parametrize("name,bps,block,ms", _FUSED_CASES)
-def test_grid_cell_fused_decode(corpus, name, bps, block, ms):
-    """Fused-engine decode (interpret on CPU, hardware on TPU) on the grid
+def test_grid_cell_fused_decode(corpus, fused_engine, name, bps, block, ms):
+    """Fused-engine decode (interpreted on the CPU, compiled on the GPU) on the grid
     geometries the round-2 review flagged as native-only (MS, 128/4096
     blocks): exercises the wire32 decode permutations on real audio."""
     fmt, pcm = corpus[name]
@@ -139,5 +138,5 @@ def test_grid_cell_fused_decode(corpus, name, bps, block, ms):
     )
     data = native.encode(pcm, cfg)
     _, out_native = native.decode(data)
-    _, out_fused = jax_decode(data, engine="fused")
+    _, out_fused = jax_decode(data, engine=fused_engine)
     np.testing.assert_array_equal(out_native, np.asarray(out_fused))

@@ -19,7 +19,7 @@ from aad_tpu.format.wav import read_wav
         ("sin300Hz.aad", "sin300Hz_decoded.wav"),
     ],
 )
-@pytest.mark.parametrize("engine", ["scan", "pallas", "fused"])
+@pytest.mark.parametrize("engine", ["scan", "fused_interpret"])
 def test_golden_decode_bit_exact(fixture_dir, aad_name, wav_name, engine):
     data = (fixture_dir / aad_name).read_bytes()
     header, pcm = decode(data, engine=engine)
@@ -37,10 +37,10 @@ def test_golden_decode_bit_exact(fixture_dir, aad_name, wav_name, engine):
 
 def test_decode_dtype_guarantee_all_dispatches(fixture_dir):
     """decode() returns int32 for every dispatch: auto (native), each JAX
-    engine, and the lenient truncated path (ADVICE r3: the dtype must not
+    engine, and the lenient truncated path (the dtype must not
     depend on native availability)."""
     data = (fixture_dir / "sin300Hz_mono.aad").read_bytes()
-    for engine in ("auto", "native", "scan", "pallas", "fused"):
+    for engine in ("auto", "native", "scan", "fused_interpret"):
         _, pcm = decode(data, engine=engine)
         assert np.asarray(pcm).dtype == np.int32, engine
     _, lenient = decode(data[:-40], engine="auto", strict=False)
@@ -191,12 +191,12 @@ class TestOverlapPipeline:
             np.testing.assert_array_equal(whole, got)
 
     def test_fused_overlap_matches_whole(self):
-        """Fused engine (interpret on CPU): chunk sizes round up to whole
-        lane tiles and the packed-u32 chunk rows reassemble bit-exactly."""
+        """Fused engine (interpreted): chunk sizes round up to whole kernel
+        lane blocks and the packed-u32 chunk rows reassemble bit-exactly."""
         from aad_tpu import Decoder
 
         h, payload = self._stream(2, 4, False, 67000)  # ~698 blocks > 512
-        dec = Decoder.from_header(h, engine="fused")
+        dec = Decoder.from_header(h, engine="fused_interpret")
         whole = np.asarray(dec.decode_payload_ondevice(payload, overlap_blocks=0))
         got = dec.decode_payload_ondevice(payload, overlap_blocks=512)
         np.testing.assert_array_equal(whole, got)
@@ -211,7 +211,7 @@ class TestOverlapPipeline:
         from aad_tpu import Decoder
 
         h, payload = self._stream(2, 4, True, 67000)
-        fused = Decoder.from_header(h, engine="fused")
+        fused = Decoder.from_header(h, engine="fused_interpret")
         whole = np.asarray(
             fused.decode_payload_ondevice(payload, overlap_blocks=0)
         )

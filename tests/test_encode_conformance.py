@@ -183,7 +183,7 @@ class TestRoundTrip:
 
 
 class TestDeepTrials:
-    """Trial counts above 2 vs the reference binary (VERDICT round 4, item 2).
+    """Trial counts above 2 vs the reference binary.
 
     The reference accepts ``-t`` up to 255 (uint8 cast of strtol,
     src/main.c:578-588); deeper searches shift the min-RMSE fold's

@@ -64,7 +64,7 @@ import sys, os
 site = sys.argv[1]
 # only the unpacked wheel on the path (plus the stdlib/site-packages deps)
 sys.path.insert(0, site)
-os.environ["AAD_TPU_PLATFORM"] = "cpu"
+os.environ["JAX_PLATFORMS"] = "cpu"
 import numpy as np
 import aad_tpu
 assert aad_tpu.__file__.startswith(site), aad_tpu.__file__

@@ -1,11 +1,10 @@
-"""Pallas kernel logic coverage on the CPU suite via interpret mode.
+"""The fused decode kernel's logic on the CPU, through Pallas interpret mode.
 
-The fused TPU kernels previously ran only in the (skipped-on-CPU) hardware
-suites, so a kernel logic regression could pass CI green. Interpret mode
-(ops.pallas_common) executes the identical kernel code op-by-op on CPU.
-Shapes are kept tiny — one (8, 128) lane tile — because interpreted grids
-run at Python speed. Bit-exactness bar matches the reference decoder suite
-(reference: test/test_aad_decoder.c:256-338).
+``engine="fused_interpret"`` runs the GPU kernel (ops.pallas_decode) op by
+op on the CPU, so the CPU suite checks the kernel itself against the scan
+engine, not only the code around it. Shapes are kept small because
+interpreted programs run slowly. Bit-exactness bar matches the reference
+decoder suite (reference: test/test_aad_decoder.c:256-338).
 """
 
 from __future__ import annotations
@@ -20,89 +19,96 @@ from aad_tpu.format.framing import (
     assemble_stream,
     build_block_headers,
 )
-from aad_tpu.ops.decode import compute_qdiffs, lms_scan
+from aad_tpu.ops.pallas_decode import LANE_BLOCK
 
 RNG = np.random.default_rng(7)
 
 
-def _random_states(nb, nch):
+def _random_states(nb, nch, rng=RNG):
     return BlockStates(
-        step_index=RNG.integers(0, 4081, (nb, nch)).astype(np.int32),
-        weight=RNG.integers(-20000, 20000, (nb, nch, 4)).astype(np.int32),
-        history=RNG.integers(-32768, 32768, (nb, nch, 4)).astype(np.int32),
+        step_index=rng.integers(0, 4081, (nb, nch)).astype(np.int32),
+        weight=rng.integers(-20000, 20000, (nb, nch, 4)).astype(np.int32),
+        history=rng.integers(-32768, 32768, (nb, nch, 4)).astype(np.int32),
     )
 
 
-@pytest.mark.parametrize("bps", [2, 3, 4])
-def test_fused_decode_kernel_matches_scan(bps):
-    """decode_fused (interpret) == lax.scan engine, per bit depth."""
-    from aad_tpu.ops.decode import _decode_blocks_impl
-    from aad_tpu.ops.pallas_decode import warm_fused_engine
-
-    warm_fused_engine()
-    L, T = 24, 70
+def _lane_inputs(L, T, bps, lo=0, hi=4081):
     codes = jnp.asarray(RNG.integers(0, 2**bps, (L, T), dtype=np.uint8))
-    si = jnp.asarray(RNG.integers(0, 4081, (L,)).astype(np.int32))
+    si = jnp.asarray(RNG.integers(lo, hi, (L,)).astype(np.int32))
     wt = jnp.asarray(RNG.integers(-20000, 20000, (L, 4)).astype(np.int32))
-    hi = jnp.asarray(RNG.integers(-32768, 32768, (L, 4)).astype(np.int32))
+    hi_ = jnp.asarray(RNG.integers(-32768, 32768, (L, 4)).astype(np.int32))
+    return codes, si, wt, hi_
+
+
+def _both_engines(codes, si, wt, hi, bps):
+    from aad_tpu.ops.decode import _decode_blocks_impl
 
     fused = _decode_blocks_impl(
-        codes, si, wt, hi, bits_per_sample=bps, engine="fused"
+        codes, si, wt, hi, bits_per_sample=bps, engine="fused_interpret"
     )
     scan = _decode_blocks_impl(
         codes, si, wt, hi, bits_per_sample=bps, engine="scan"
     )
-    np.testing.assert_array_equal(np.asarray(fused), np.asarray(scan))
+    return np.asarray(fused), np.asarray(scan)
 
 
-@pytest.mark.parametrize("n_tiles", [2, 3, 4])
-def test_fused_decode_lane_interleave_matches_scan(n_tiles):
-    """The r={2,3,4} lane-interleave folds (ops.pallas_decode._pick_r) are
-    bit-exact vs the scan engine at tile counts that trigger each fold —
-    the golden fixtures only span one tile, so the fold paths need their
-    own oracle check (they carry the chain state in (r*8, 128) registers)."""
-    from aad_tpu.ops.decode import _decode_blocks_impl
-    from aad_tpu.ops.pallas_decode import TILE, _pick_r, warm_fused_engine
+@pytest.mark.parametrize("bps", [2, 3, 4])
+def test_fused_decode_kernel_matches_scan(bps):
+    """Codes-level entry: kernel (interpret) == lax.scan engine."""
+    fused, scan = _both_engines(*_lane_inputs(24, 70, bps), bps)
+    np.testing.assert_array_equal(fused, scan)
 
-    warm_fused_engine()
-    assert _pick_r(n_tiles) == n_tiles  # the fold this case exercises
-    L, T = n_tiles * TILE, 24
-    codes = jnp.asarray(RNG.integers(0, 16, (L, T), dtype=np.uint8))
-    si = jnp.asarray(RNG.integers(0, 4081, (L,)).astype(np.int32))
-    wt = jnp.asarray(RNG.integers(-20000, 20000, (L, 4)).astype(np.int32))
-    hi = jnp.asarray(RNG.integers(-32768, 32768, (L, 4)).astype(np.int32))
 
-    fused = _decode_blocks_impl(
-        codes, si, wt, hi, bits_per_sample=4, engine="fused"
+def _wire_stream(nch, bps, ms, nb, rng):
+    geo = compute_block_geometry(64 * nch, nch, bps)
+    nspb = geo.num_samples_per_block
+    ns = nb * nspb - 3
+    codes = rng.integers(0, 2**bps, (nb, nch, geo.codes_per_block),
+                         dtype=np.uint8)
+    hdr = build_block_headers(
+        _random_states(nb, nch, rng), np.zeros((nb, nch), np.int32), geo
     )
-    scan = _decode_blocks_impl(
-        codes, si, wt, hi, bits_per_sample=4, engine="scan"
-    )
-    np.testing.assert_array_equal(np.asarray(fused), np.asarray(scan))
+    return geo, ns, np.asarray(assemble_stream(hdr, codes, geo, ns))
 
 
-def test_lms_pallas_kernel_matches_scan():
-    """lms_pallas (interpret) == lms_scan phase B."""
-    from aad_tpu.ops.pallas_lms import lms_pallas
+# Lane counts C * B around the kernel's lane block: one program with one
+# live lane (two under MS, which needs both channels), a count that is not
+# a multiple of the lane block, and several lane blocks.
+_LANES = {"one": 1, "ragged": LANE_BLOCK + 2, "several": 3 * LANE_BLOCK - 20}
 
-    L, T = 16, 90
-    qd = jnp.asarray(RNG.integers(-3000, 3000, (L, T)).astype(np.int32))
-    hi = jnp.asarray(RNG.integers(-32768, 32768, (L, 4)).astype(np.int32))
-    wt = jnp.asarray(RNG.integers(-20000, 20000, (L, 4)).astype(np.int32))
-    got = lms_pallas(qd, hi, wt)
-    want = lms_scan(qd, hi, wt)
-    np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
+
+@pytest.mark.parametrize("ms", [False, True])
+@pytest.mark.parametrize("lanes", sorted(_LANES))
+@pytest.mark.parametrize("bps", [2, 3, 4])
+def test_fused_pipeline_matches_scan(bps, lanes, ms):
+    """The wire-word pipeline with the kernel (interpret) == with scan,
+    for every bit depth, lane count class and MS on/off."""
+    from aad_tpu.codec.decoder import _device_pipeline_words
+    from aad_tpu.ops.wire32 import payload_to_words_split
+
+    nch = 2 if ms else 1
+    nb = max(1, _LANES[lanes] // nch)
+    rng = np.random.default_rng(1000 + 10 * bps + nb)
+    geo, ns, payload = _wire_stream(nch, bps, ms, nb, rng)
+    hdr_w, data_w = payload_to_words_split(payload, geo, nb)
+    out = {}
+    for engine in ("scan", "fused_interpret"):
+        lanes_out = np.asarray(
+            _device_pipeline_words(
+                jnp.asarray(hdr_w), jnp.asarray(data_w), geo=geo,
+                num_blocks=nb, bits_per_sample=bps, ms=ms, engine=engine,
+            )
+        )
+        out[engine] = lanes_out.reshape(nch, -1)[:, :ns]
+    np.testing.assert_array_equal(out["fused_interpret"], out["scan"])
 
 
 @pytest.mark.parametrize("nch,bps", [(2, 4), (1, 4), (2, 3), (2, 2)])
 def test_wire32_fused_pipeline_matches_u8_scan(nch, bps):
-    """Full words pipeline + fused kernel (interpret) == u8 scan pipeline."""
+    """Full words pipeline + kernel (interpret) == u8 scan pipeline."""
     from aad_tpu.codec.decoder import _device_pipeline, _device_pipeline_words
-    from aad_tpu.ops.decode import resolve_engine
-    from aad_tpu.ops.pallas_decode import warm_fused_engine
     from aad_tpu.ops.wire32 import payload_to_words_split
 
-    warm_fused_engine()
     geo = compute_block_geometry(128, nch, bps)
     nspb = geo.num_samples_per_block
     nb = 5
@@ -122,26 +128,20 @@ def test_wire32_fused_pipeline_matches_u8_scan(nch, bps):
         )
     )
 
-    # fused path needs a whole lane tile: pad the block batch like
-    # decode_payload_ondevice does
-    lane_mult = max(1, 1024 // nch)
-    nbp = -(-nb // lane_mult) * lane_mult
-    hdr_w, data_w = payload_to_words_split(payload, geo, nbp)
+    hdr_w, data_w = payload_to_words_split(payload, geo, nb)
     lanes = np.asarray(
         _device_pipeline_words(
             jnp.asarray(hdr_w), jnp.asarray(data_w), geo=geo,
-            num_blocks=nbp, bits_per_sample=bps, ms=(nch == 2),
-            engine="fused",
+            num_blocks=nb, bits_per_sample=bps, ms=(nch == 2),
+            engine="fused_interpret",
         )
     )
-    if lanes.dtype == np.uint32:
-        lanes = lanes.view("<i2")
     got = lanes.reshape(nch, -1)[:, :ns]
     np.testing.assert_array_equal(got, want)
 
 
 def test_golden_fixture_fused_interpret(fixture_dir):
-    """Golden .aad decodes bit-exactly through the fused kernel on CPU."""
+    """Golden .aad decodes bit-exactly through the kernel on CPU."""
     from aad_tpu.codec.decoder import Decoder
     from aad_tpu.constants import FILE_HEADER_SIZE
     from aad_tpu.format.header import decode_header
@@ -149,155 +149,13 @@ def test_golden_fixture_fused_interpret(fixture_dir):
 
     data = (fixture_dir / "sin300Hz_mono.aad").read_bytes()
     header = decode_header(data[:FILE_HEADER_SIZE])
-    dec = Decoder.from_header(header, engine="fused")
+    dec = Decoder.from_header(header, engine="fused_interpret")
     pcm = np.asarray(
         dec.decode_payload_ondevice(np.frombuffer(data, np.uint8)[FILE_HEADER_SIZE:])
     )
     g = read_wav(str(fixture_dir / "sin300Hz_mono_decoded.wav"))
     ref = np.asarray(g[1] if isinstance(g, tuple) else g) >> 16
     np.testing.assert_array_equal(pcm, ref)
-
-
-def test_encode_fused_streaming_large_block():
-    """Chunked-DMA fused encode (nspb > resident VMEM budget) == scan.
-
-    The mono 3-bit 1024-byte geometry (2684 samples/block) exceeds the
-    resident kernel's VMEM budget; it must stream words from HBM and stay
-    bit-exact, including a ragged final block.
-    """
-    from aad_tpu.ops.encode import encode_stream_blocks
-    from aad_tpu.ops.pallas_encode_fused import (
-        MAX_NSPB_RESIDENT,
-        encode_stream_fused,
-        supports_fused_encode,
-    )
-
-    geo = compute_block_geometry(1024, 1, 3)
-    nspb = geo.num_samples_per_block
-    assert nspb > MAX_NSPB_RESIDENT and supports_fused_encode(nspb)
-    B = 2
-    sig = (7000 * np.sin(np.arange(B * nspb) / 11.0)).astype(np.int32)
-    blocks = jnp.asarray(sig.reshape(B, 1, 1, nspb))
-    valid = jnp.asarray([nspb, nspb - 37], dtype=jnp.int32)
-    h_s, c_s = encode_stream_blocks(blocks, valid, 3, 1, engine="scan")
-    h_f, c_f, _ = encode_stream_fused(blocks, valid, 3, 1)
-    np.testing.assert_array_equal(np.asarray(c_s), np.asarray(c_f))
-    for a, b in zip(h_s, h_f):
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-
-
-@pytest.mark.parametrize("lanes,r,trials", [(1536, 2, 1), (4096, 4, 0)])
-def test_encode_fused_lane_interleave_matches_scan(lanes, r, trials):
-    """The R={2,4} encode lane-interleave folds == scan engine, byte-level.
-
-    R >= 2 switches the quantiser to the binary-search formulation (the
-    issue-bound regime); every other interpret encode test runs few lanes
-    and so only covers R=1's threshold count. Exercises the trial search
-    (R=2) and the trial-free emit path (R=4)."""
-    from aad_tpu.ops.encode import encode_stream_blocks
-    from aad_tpu.ops.pallas_encode_fused import (
-        _pick_interleave,
-        encode_stream_fused,
-    )
-
-    assert _pick_interleave(lanes) == r
-    geo = compute_block_geometry(128, 1, 4)
-    nspb = geo.num_samples_per_block
-    B = 2
-    rng = np.random.default_rng(100 + r)
-    sig = rng.integers(-28000, 28000, B * lanes * nspb).astype(np.int32)
-    blocks = jnp.asarray(sig.reshape(B, lanes, nspb))
-    valid = jnp.asarray([nspb, nspb - 11], dtype=jnp.int32)
-
-    h_s, c_s = encode_stream_blocks(blocks, valid, 4, trials, engine="scan")
-    h_f, c_f, _ = encode_stream_fused(blocks, valid, 4, trials)
-    np.testing.assert_array_equal(np.asarray(c_s), np.asarray(c_f))
-    for a, b in zip(h_s, h_f):
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-
-
-@pytest.mark.parametrize("per_pass", [False, True])
-def test_encode_kernel_matches_scan(per_pass):
-    """Both Pallas encode kernels (interpret) == scan engine, byte-level.
-
-    per_pass=False exercises the single-execution whole-stream kernel
-    (ops/pallas_encode_fused); per_pass=True forces the per-pass kernel
-    pipeline (ops/pallas_encode) that large geometries fall back to.
-    """
-    from aad_tpu.ops.encode import (
-        encode_stream_blocks,
-        encode_stream_blocks_carry,
-        encode_stream_blocks_pallas,
-    )
-
-    geo = compute_block_geometry(128, 2, 4)
-    nspb = geo.num_samples_per_block
-    B, S, nch = 2, 3, 2
-    sig = (
-        6000 * np.sin(np.arange(B * S * nch * nspb) / 9.0)
-    ).astype(np.int32)
-    blocks = jnp.asarray(sig.reshape(B, S, nch, nspb))
-    valid = jnp.full(B, nspb, dtype=jnp.int32)
-
-    h_scan, c_scan = encode_stream_blocks(blocks, valid, 4, 1, engine="scan")
-    if per_pass:
-        h_pl, c_pl, _ = encode_stream_blocks_pallas(
-            blocks, valid, 4, 1, _force_per_pass=True
-        )
-    else:
-        h_pl, c_pl, _ = encode_stream_blocks_pallas(blocks, valid, 4, 1)
-    np.testing.assert_array_equal(np.asarray(c_scan), np.asarray(c_pl))
-    for a, b in zip(h_scan, h_pl):
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-
-
-@pytest.mark.parametrize(
-    "trials,bsize,bps",
-    [(2, 1024, 4), (3, 320, 4), (2, 96, 2), (1, 128, 3),
-     # deep searches (VERDICT round 4, item 2): the "2N slots for
-     # trials=N" schedule had never run with N>3 against an oracle
-     (4, 320, 4), (8, 96, 2)],
-)
-def test_encode_fused_pass_stack_matches_scan(trials, bsize, bps):
-    """The pass-stacked single-tile trial search (interpret) == scan engine.
-
-    The bench workload's shape class: one stereo stream (2 live lanes in
-    one (8, 128) tile, R=1), warm-on-prev, ragged tail — exactly the
-    `_use_pass_stack` regime where independent passes ride the tile's
-    dead upper sublane rows (docs/DESIGN.md §3). Asserts the gate is
-    actually taken for this shape, then pins headers+codes byte-level
-    against the scan engine (selection semantics: last strict improvement,
-    reference trial loop src/aad_encoder.c:470-562). trials=2 covers the
-    scratch-emit final slot; trials=3 (legal — the reference takes a
-    uint8, src/aad_encoder.h:14) covers the mid-search slot where a
-    measure rides alone and the warm||blend pairing repeats; the bps=2
-    and bps=3 cells cover the stacked emits' other code widths (packing
-    shifts / qdiff masks) on CPU — the TPU hardware suite covers them on
-    the real chip (test_encode_engine_tpu.py::TestFusedEncodeKernel).
-    """
-    from aad_tpu.ops.encode import encode_stream_blocks
-    from aad_tpu.ops.pallas_encode_fused import (
-        _pick_interleave,
-        _use_pass_stack,
-        encode_stream_fused,
-    )
-
-    geo = compute_block_geometry(bsize, 2, bps)
-    nspb = geo.num_samples_per_block
-    B, nch = 3, 2
-    assert _pick_interleave(nch) == 1
-    assert _use_pass_stack(trials, True, False, False, 1, 1, nch)
-
-    rng = np.random.default_rng(42)
-    sig = rng.integers(-32768, 32768, B * nch * nspb).astype(np.int32)
-    blocks = jnp.asarray(sig.reshape(B, nch, nspb))
-    valid = jnp.asarray([nspb, nspb, nspb - 37], dtype=jnp.int32)
-
-    h_s, c_s = encode_stream_blocks(blocks, valid, bps, trials, engine="scan")
-    h_f, c_f, _ = encode_stream_fused(blocks, valid, bps, trials)
-    np.testing.assert_array_equal(np.asarray(c_s), np.asarray(c_f))
-    for a, b in zip(h_s, h_f):
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
 
 def test_fused_decode_malformed_step_index_matches_scan():
@@ -307,56 +165,50 @@ def test_fused_decode_malformed_step_index_matches_scan():
     reachable maximum (4080); its table slot is 256, one past the table,
     which the reference reads out of bounds (src/aad_tables.h:28 — its
     asserts are DEBUG-only). The framework defines the case instead: every
-    engine clamps the slot to 255 (ops/transitions.py::stepsize_from_index
-    clip-mode, the fused kernel's jnp.minimum, native's std::min /
-    _mm512_min_epi32) so adversarial streams cannot diverge engines.
+    parse point clamps the index to 4080 before any engine runs, so the
+    kernel's table read stays inside the table and adversarial streams
+    cannot diverge engines.
     """
-    from aad_tpu.ops.decode import _decode_blocks_impl
-    from aad_tpu.ops.pallas_decode import warm_fused_engine
-
-    warm_fused_engine()
-    L, T = 24, 70
-    codes = jnp.asarray(RNG.integers(0, 16, (L, T), dtype=np.uint8))
-    si = jnp.asarray(RNG.integers(4081, 4096, (L,)).astype(np.int32))
-    wt = jnp.asarray(RNG.integers(-20000, 20000, (L, 4)).astype(np.int32))
-    hi = jnp.asarray(RNG.integers(-32768, 32768, (L, 4)).astype(np.int32))
-
-    fused = _decode_blocks_impl(
-        codes, si, wt, hi, bits_per_sample=4, engine="fused"
-    )
-    scan = _decode_blocks_impl(
-        codes, si, wt, hi, bits_per_sample=4, engine="scan"
-    )
-    np.testing.assert_array_equal(np.asarray(fused), np.asarray(scan))
+    fused, scan = _both_engines(*_lane_inputs(24, 70, 4, 4081, 4096), 4)
+    np.testing.assert_array_equal(fused, scan)
 
 
-@pytest.mark.parametrize(
-    "nch,bps,ms,trials", [(2, 4, False, 2), (2, 4, True, 1)]
-)
-def test_sequential_overlap_encode_matches_scan(
-    monkeypatch, nch, bps, ms, trials
-):
-    """The chunked transfer-overlap sequential encode == one-shot bytes.
+@pytest.mark.parametrize("bps", [2, 4])
+def test_fused_table_read_every_slot(bps):
+    """The kernel reads the step-size table right at all 256 slots.
 
-    Round 5's encode mirror of the decoder's overlap schedule
-    (codec/encoder.py::Encoder._encode_sequential_overlap): chunks chain
-    the predictor carry, so bytes must equal the scan engine's one-shot
-    encode — ragged tail chunk and MS included. Chunk size is shrunk so
-    the CPU interpret run crosses several chunk boundaries.
+    Lane s starts at step index 16 * s (slot s) with zero predictor state
+    and a first code of magnitude 1, so its first decoded sample is
+    clip16(table[s] * 3 >> (bps - 1)); the whole output must also equal
+    the scan engine's.
     """
-    import aad_tpu.codec.encoder as enc_mod
-    from aad_tpu.codec.encoder import EncodeConfig, encode
+    from aad_tpu.tables import STEPSIZE_TABLE
 
-    monkeypatch.setattr(enc_mod, "_OVERLAP_CHUNK_BLOCKS", 4)
-    monkeypatch.setattr(enc_mod, "_OVERLAP_MIN_BLOCKS", 6)
-    cfg = EncodeConfig(
-        num_channels=nch, sampling_rate=8000, bits_per_sample=bps,
-        max_block_size=256, ch_process_method=1 if ms else 0,
-        num_encode_trials=trials,
+    L, T = 256, 16
+    codes = RNG.integers(0, 2**bps, (L, T), dtype=np.uint8)
+    codes[:, 0] = 1
+    si = np.minimum(np.arange(L, dtype=np.int32) * 16, 4080)
+    zeros = jnp.zeros((L, 4), jnp.int32)
+    fused, scan = _both_engines(
+        jnp.asarray(codes), jnp.asarray(si), zeros, zeros, bps
     )
-    nspb = cfg.geometry().num_samples_per_block
-    n = 11 * nspb - 37  # 3 chunks, ragged final block in a ragged chunk
-    rng = np.random.default_rng(7)
-    pcm = rng.integers(-32768, 32768, (nch, n)).astype(np.int32)
-    want = encode(pcm, cfg, engine="scan")
-    assert encode(pcm, cfg, engine="pallas") == want
+    want = np.clip(
+        (STEPSIZE_TABLE.astype(np.int64) * 3) >> (bps - 1), -32768, 32767
+    )
+    np.testing.assert_array_equal(fused[:, 4], want)
+    np.testing.assert_array_equal(fused, scan)
+
+
+def test_fused_interpret_refuses_gpu_and_fused_refuses_cpu(monkeypatch):
+    """The kernel never falls back: compiled needs a GPU, interpreted
+    refuses one."""
+    import jax
+
+    from aad_tpu.ops import pallas_decode
+
+    with pytest.raises(ValueError, match="needs a GPU"):
+        pallas_decode.check_platform(interpret=False)
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    with pytest.raises(ValueError, match="interpret mode"):
+        pallas_decode.check_platform(interpret=True)
+    pallas_decode.check_platform(interpret=False)

@@ -14,8 +14,6 @@ single-block encodes.
 import numpy as np
 import pytest
 
-import jax.numpy as jnp
-
 from aad_tpu.codec.batch_encode import encode_batch
 from aad_tpu.codec.decoder import decode
 from aad_tpu.codec.encoder import EncodeConfig, encode
@@ -99,45 +97,65 @@ def test_parallel_roundtrip_quality(bps, ceiling):
     assert rmse < ceiling
 
 
-@pytest.mark.parametrize("trials", [0, 2])
-def test_parallel_fused_kernel_matches_scan(trials):
-    """encode_blocks_parallel: fused Pallas kernel (interpret on CPU,
-    prev-block inputs statically dropped) == scan engine, field-exact.
-    Covers both the trials=0 and the warm_on_prev=False kernel arg lists."""
-    from aad_tpu.ops.encode import encode_blocks_parallel
+def _native_or_skip():
+    from aad_tpu import native
 
+    if not native.available():
+        pytest.skip("native codec unavailable")
+    return native
+
+
+@pytest.mark.parametrize("trials", [0, 1, 2, 3, 4, 5])
+def test_sequential_scan_trials_match_native(trials):
+    """Device (scan) sequential encode == native bytes for trial searches
+    of depth 0-5: stereo with a ragged final block, the selection
+    semantics of the reference trial loop (src/aad_encoder.c:470-562)."""
+    native = _native_or_skip()
+    cfg = _cfg(2, 4, trials=trials, block=320)
+    nspb = cfg.geometry().num_samples_per_block
+    pcm = _signal(2, 3 * nspb - 37, seed=40 + trials)
+    assert encode(pcm, cfg, engine="scan") == native.encode(pcm, cfg)
+
+
+@pytest.mark.parametrize("parallel", [False, True])
+def test_mono_3bit_large_block_matches_native(parallel):
+    """Mono 3-bit 1023-byte blocks (2684 samples per block, the largest
+    block the bench shapes use) with a ragged final block: scan == native
+    in sequential and block-parallel mode."""
+    native = _native_or_skip()
+    cfg = _cfg(1, 3, trials=1, block=1023)
+    nspb = cfg.geometry().num_samples_per_block
+    assert nspb == 2684
+    pcm = _signal(1, 2 * nspb - 37, seed=3)
+    if parallel:
+        want = native.encode_parallel(pcm, cfg)
+    else:
+        want = native.encode(pcm, cfg)
+    assert encode(pcm, cfg, engine="scan", parallel_blocks=parallel) == want
+
+
+@pytest.mark.parametrize(
+    "trials,chunk_blocks,warm_passes",
+    [(0, 1, 0), (2, 1, 0), (1, 2, 1), (1, 1, 1)],
+)
+def test_parallel_scan_chunk_warm_matches_native(
+    trials, chunk_blocks, warm_passes
+):
+    """Block-parallel scan encode == native for the chunk/warm settings
+    and trial counts the device path serves (stereo 4-bit, ragged tail)."""
+    native = _native_or_skip()
     cfg = _cfg(2, 4, trials=trials)
     nspb = cfg.geometry().num_samples_per_block
-    B, nch = 3, 2
-    pcm = _signal(nch, B * nspb, seed=17)
-    blocks = jnp.asarray(
-        np.moveaxis(pcm.reshape(nch, B, nspb), 1, 0)
+    pcm = _signal(2, 6 * nspb - 17, seed=53)
+    got = encode(
+        pcm, cfg, engine="scan", parallel_blocks=True,
+        parallel_chunk_blocks=chunk_blocks,
+        parallel_warm_passes=warm_passes,
     )
-    valid = jnp.asarray([nspb, nspb, nspb - 29], dtype=jnp.int32)
-
-    h_s, w_s = encode_blocks_parallel(blocks, valid, 4, trials, engine="scan")
-    h_p, w_p = encode_blocks_parallel(
-        blocks, valid, 4, trials, engine="pallas"
+    want = native.encode_parallel(
+        pcm, cfg, chunk_blocks=chunk_blocks, warm_passes=warm_passes
     )
-    from aad_tpu.ops.wire32 import kernel_words_to_codes
-
-    T = nspb - 4
-    np.testing.assert_array_equal(
-        np.asarray(kernel_words_to_codes(w_s, T)),
-        np.asarray(kernel_words_to_codes(w_p, T)),
-    )
-    for a, b in zip(h_s, h_p):
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-
-
-def test_parallel_full_api_pallas_matches_scan():
-    """End-to-end Encoder bytes agree between the scan and Pallas engines
-    in parallel mode."""
-    cfg = _cfg(1, 3, trials=1)
-    pcm = _signal(1, cfg.geometry().num_samples_per_block * 2 + 11, seed=5)
-    a = encode(pcm, cfg, engine="scan", parallel_blocks=True)
-    b = encode(pcm, cfg, engine="pallas", parallel_blocks=True)
-    assert a == b
+    assert got == want
 
 
 def test_batch_parallel_matches_solo():
@@ -253,37 +271,6 @@ def test_warm_pass_stream_decodes_and_improves():
     seq = rmse(encode(pcm, cfg, engine="scan"))
     assert warm <= cold
     assert warm < cold * 1.001 or cold == seq  # warm never hurts
-
-
-def test_chunked_warm_pallas_matches_scan():
-    """Fused kernel (interpret) == scan for chunked + warm parallel mode."""
-    from aad_tpu.ops.encode import encode_blocks_parallel
-    from aad_tpu.ops.wire32 import kernel_words_to_codes
-
-    cfg = _cfg(2, 4, trials=1)
-    nspb = cfg.geometry().num_samples_per_block
-    B, nch = 6, 2
-    pcm = _signal(nch, B * nspb, seed=53)
-    blocks = jnp.asarray(np.moveaxis(pcm.reshape(nch, B, nspb), 1, 0))
-    valid = np.full(B, nspb, dtype=np.int32)
-    valid[-1] = nspb - 17
-    jv = jnp.asarray(valid)
-
-    for kwargs in ({"chunk_blocks": 2, "warm_passes": 1},
-                   {"chunk_blocks": 1, "warm_passes": 1}):
-        h_s, w_s = encode_blocks_parallel(
-            blocks, jv, 4, 1, engine="scan", **kwargs
-        )
-        h_p, w_p = encode_blocks_parallel(
-            blocks, jv, 4, 1, engine="pallas", **kwargs
-        )
-        T = nspb - 4
-        np.testing.assert_array_equal(
-            np.asarray(kernel_words_to_codes(w_s, T)),
-            np.asarray(kernel_words_to_codes(w_p, T)),
-        )
-        for a, b in zip(h_s, h_p):
-            np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
 
 class TestNativeParallel:

@@ -164,11 +164,36 @@ def test_graft_entry_and_dryrun():
 
 def test_dryrun_16_devices():
     """16-device mesh: catches any 8-device assumption in make_mesh / shard
-    shapes. dryrun_multichip self-provisions a 16-device virtual CPU child
-    and asserts sharded == unsharded bit-exactness inside."""
+    shapes. Runs dryrun_multichip in a child process with a 16-device
+    virtual CPU mesh; it asserts sharded == unsharded bit-exactness."""
+    import os
+    import pathlib
+    import re
+    import subprocess
+    import sys
+
+    env = dict(os.environ)
+    flags = re.sub(r"--xla_force_host_platform_device_count=\d+", "",
+                   env.get("XLA_FLAGS", ""))
+    env["XLA_FLAGS"] = (
+        flags + " --xla_force_host_platform_device_count=16"
+    ).strip()
+    env["JAX_PLATFORMS"] = "cpu"
+    subprocess.run(
+        [sys.executable, "-c",
+         "import __graft_entry__ as g; g.dryrun_multichip(16)"],
+        cwd=pathlib.Path(__file__).parent.parent, env=env, check=True,
+        timeout=600,
+    )
+
+
+def test_dryrun_refuses_short_backend():
+    """dryrun_multichip never substitutes a CPU mesh: asking for more
+    devices than the backend has raises."""
     import __graft_entry__ as g
 
-    g.dryrun_multichip(16)
+    with pytest.raises(RuntimeError, match="devices requested"):
+        g.dryrun_multichip(len(jax.devices()) + 1)
 
 
 class TestSequenceParallelEncode:
@@ -195,7 +220,7 @@ class TestSequenceParallelEncode:
         h_s, w_s = encode_blocks_parallel_sharded(
             blocks, jv, bits_per_sample=4, num_trials=2, mesh=mesh
         )
-        h_u, w_u = encode_blocks_parallel(blocks, jv, 4, 2, engine="scan")
+        h_u, w_u = encode_blocks_parallel(blocks, jv, 4, 2)
         np.testing.assert_array_equal(np.asarray(w_s), np.asarray(w_u))
         for a, b in zip(h_s, h_u):
             np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
@@ -239,7 +264,7 @@ class TestSequenceParallelEncode:
             chunk_blocks=2,
         )
         h_u, w_u = encode_blocks_parallel(
-            blocks, jv, 4, 1, engine="scan", chunk_blocks=2
+            blocks, jv, 4, 1, chunk_blocks=2
         )
         np.testing.assert_array_equal(np.asarray(w_s), np.asarray(w_u))
         for a, b in zip(h_s, h_u):
@@ -268,7 +293,7 @@ class TestSequenceParallelEncode:
             chunk_blocks=c, warm_passes=wp,
         )
         h_u, w_u = encode_blocks_parallel(
-            blocks, jv, 4, 1, engine="scan", chunk_blocks=c, warm_passes=wp
+            blocks, jv, 4, 1, chunk_blocks=c, warm_passes=wp
         )
         np.testing.assert_array_equal(np.asarray(w_s), np.asarray(w_u))
         for a, b in zip(h_s, h_u):

@@ -3,13 +3,11 @@
 Sets AAD_TPU_FULL_GRID=1 and runs tests/test_corpus_jax_grid.py — the full
 real-audio product the reference executes through its codec under test
 (reference: test/test_aad_encode_decode.c:492-636) plus the uncapped
-fused-decode cells — then writes FULLGRID_r{N}.json
-``{"round", "passed", "failed", "seconds", "ok"}`` at the repo root so each
-round's conformance record shows the grid actually ran, with no env-var
-hand-waving.
+fused-decode cells — then prints the record
+``{"passed", "failed", "seconds", "ok"}`` and, given a path, writes it
+there as JSON.
 
-Usage: python tools/run_full_grid.py [round_number]
-(round defaults to the last "round" entry in PROGRESS.jsonl, or 0)
+Usage: python tools/run_full_grid.py [record_path]
 """
 import json
 import os
@@ -20,14 +18,6 @@ import time
 from pathlib import Path
 
 _REPO = Path(__file__).resolve().parent.parent
-
-
-def current_round() -> int:
-    try:
-        lines = (_REPO / "PROGRESS.jsonl").read_text().strip().splitlines()
-        return int(json.loads(lines[-1]).get("round", 0))
-    except Exception:
-        return 0
 
 
 def run_pytest(args: list[str], env: dict) -> tuple[int, int, float, str]:
@@ -54,21 +44,19 @@ def run_pytest(args: list[str], env: dict) -> tuple[int, int, float, str]:
 
 
 def main() -> int:
-    rnd = int(sys.argv[1]) if len(sys.argv) > 1 else current_round()
     env = dict(os.environ)
     env["AAD_TPU_FULL_GRID"] = "1"
     passed, failed, secs, tail = run_pytest(
         ["tests/test_corpus_jax_grid.py"], env
     )
     record = {
-        "round": rnd,
         "passed": passed,
         "failed": failed,
         "seconds": round(secs, 1),
         "ok": failed == 0 and passed > 0,
     }
-    out_path = _REPO / f"FULLGRID_r{rnd:02d}.json"
-    out_path.write_text(json.dumps(record, indent=1) + "\n")
+    if len(sys.argv) > 1:
+        Path(sys.argv[1]).write_text(json.dumps(record, indent=1) + "\n")
     print(tail.splitlines()[-1] if tail.strip() else "")
     print(json.dumps(record))
     return 0 if record["ok"] else 1

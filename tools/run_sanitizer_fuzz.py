@@ -64,7 +64,7 @@ from pathlib import Path
 
 _REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(_REPO))
-os.environ.setdefault("AAD_TPU_PLATFORM", "cpu")
+os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
 SEED_BASE = 90_000  # disjoint from the suite's (1000+) and the soak's (50000+)
 MUT_KEEP = 6        # streams kept per seed-run for the mutation phase
@@ -307,7 +307,7 @@ def _parent(n_seeds: int, mutations: int, record: str | None) -> int:
     env.update(
         LD_PRELOAD=libasan,
         AAD_TPU_NATIVE_LIB=str(san_lib),
-        AAD_TPU_PLATFORM="cpu",
+        JAX_PLATFORMS="cpu",
         # python/numpy leak by design; ODR noise from unrelated preloaded
         # libs is not our codec's problem — OOB/UAF/UB all still abort.
         ASAN_OPTIONS="detect_leaks=0:detect_odr_violation=0:abort_on_error=1",
@@ -352,7 +352,7 @@ def _parent(n_seeds: int, mutations: int, record: str | None) -> int:
         tenv.update(
             LD_PRELOAD=libtsan,
             AAD_TPU_NATIVE_LIB=str(tsan_lib),
-            AAD_TPU_PLATFORM="cpu",
+            JAX_PLATFORMS="cpu",
             TSAN_OPTIONS="halt_on_error=1",
         )
         rc_tsan = subprocess.run(

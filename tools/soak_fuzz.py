@@ -47,7 +47,7 @@ from pathlib import Path
 _REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(_REPO))
 sys.path.insert(0, str(_REPO / "tests"))
-os.environ.setdefault("AAD_TPU_PLATFORM", "cpu")
+os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
 import numpy as np
 from util import reference_decode, reference_encode, write_pcm16_wav
@@ -244,9 +244,9 @@ def main(n_seeds: int = 400, record: str | None = None) -> int:
                 continue
         if seed % FUSED_EVERY == 0 and nspb <= 8192:
             # interpret-mode fused decode is minutes-slow on six-figure
-            # nspb; the hardware suite covers big geometries compiled
+            # nspb; the GPU suite covers big geometries compiled
             counts["fused"] += 1
-            _, fdec = jax_decode(ref, engine="fused")
+            _, fdec = jax_decode(ref, engine="fused_interpret")
             if not np.array_equal(np.asarray(fdec), ref_pcm >> 16):
                 bad += 1
                 print(f"FUSED-DECODE DIVERGENCE seed={seed} cfg={cfg}")
